@@ -1,0 +1,128 @@
+// Per-lane SHA-256 of the min-hash sweep: message assembly from the
+// row's word template plus the lane's k low decimal digits, and the
+// compression rounds.
+#pragma once
+
+#include <stdint.h>
+
+#define BMT_FN __device__ __forceinline__
+
+namespace bmt {
+
+// The lane axis holds at most 10^9 lanes (batch * 10^k must fit int32),
+// so k <= 9 and the k digit bytes span at most 3 consecutive tail words.
+constexpr int kMaxDigits = 9;
+constexpr int kDigitSlots = 3;
+
+struct DigitArgs {
+  int k;                     // low digits generated per lane, 1..9
+  int base_word;             // first tail word the low digits touch
+  int word[kMaxDigits];      // tail word of low digit j (most significant first)
+  int shift[kMaxDigits];     // left shift of its ASCII byte within that word
+};
+
+__constant__ uint32_t kK[64] = {
+    0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
+    0x923F82A4u, 0xAB1C5ED5u, 0xD807AA98u, 0x12835B01u, 0x243185BEu, 0x550C7DC3u,
+    0x72BE5D74u, 0x80DEB1FEu, 0x9BDC06A7u, 0xC19BF174u, 0xE49B69C1u, 0xEFBE4786u,
+    0x0FC19DC6u, 0x240CA1CCu, 0x2DE92C6Fu, 0x4A7484AAu, 0x5CB0A9DCu, 0x76F988DAu,
+    0x983E5152u, 0xA831C66Du, 0xB00327C8u, 0xBF597FC7u, 0xC6E00BF3u, 0xD5A79147u,
+    0x06CA6351u, 0x14292967u, 0x27B70A85u, 0x2E1B2138u, 0x4D2C6DFCu, 0x53380D13u,
+    0x650A7354u, 0x766A0ABBu, 0x81C2C92Eu, 0x92722C85u, 0xA2BFE8A1u, 0xA81A664Bu,
+    0xC24B8B70u, 0xC76C51A3u, 0xD192E819u, 0xD6990624u, 0xF40E3585u, 0x106AA070u,
+    0x19A4C116u, 0x1E376C08u, 0x2748774Cu, 0x34B0BCB5u, 0x391C0CB3u, 0x4ED8AA4Au,
+    0x5B9CCA4Fu, 0x682E6FF3u, 0x748F82EEu, 0x78A5636Fu, 0x84C87814u, 0x8CC70208u,
+    0x90BEFFFAu, 0xA4506CEBu, 0xBEF9A3F7u, 0xC67178F2u,
+};
+
+BMT_FN uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
+
+// One compression of the 16-word block w (overwritten by the message
+// schedule).  out[i] = state[i] + round output i.  Callers that read only
+// out[0..1] let the compiler drop the work feeding the other six words.
+BMT_FN void compress(const uint32_t st[8], uint32_t w[16], uint32_t out[8]) {
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+  for (int t = 0; t < 64; ++t) {
+    uint32_t wt;
+    if (t < 16) {
+      wt = w[t];
+    } else {
+      const uint32_t w15 = w[(t - 15) & 15];
+      const uint32_t w2 = w[(t - 2) & 15];
+      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
+      w[t & 15] = wt;
+    }
+    const uint32_t s1e = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+    const uint32_t ch = g ^ (e & (f ^ g));
+    const uint32_t t1 = h + s1e + ch + kK[t] + wt;
+    const uint32_t s0a = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+    const uint32_t maj = (a & b) | (c & (a | b));
+    const uint32_t t2 = s0a + maj;
+    h = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = b;
+    b = a;
+    a = t1 + t2;
+  }
+  out[0] = st[0] + a;
+  out[1] = st[1] + b;
+  out[2] = st[2] + c;
+  out[3] = st[3] + d;
+  out[4] = st[4] + e;
+  out[5] = st[5] + f;
+  out[6] = st[6] + g;
+  out[7] = st[7] + h;
+}
+
+// (h0, h1) of lane `lane` of one chunk row: the row's NB*16 template words
+// `tmpl` (high digits already folded in on the host) with the lane's k low
+// digits ORed in, compressed from the host-folded midstate.
+template <int NB>
+BMT_FN void lane_hash(const uint32_t mid[8], const uint32_t tmpl[NB * 16],
+                      const DigitArgs& da, uint32_t lane, uint32_t& h0,
+                      uint32_t& h1) {
+  // Digits least significant first: digit index k-1 is lane % 10.  The
+  // byte of each lands in one of at most 3 word slots after base_word.
+  uint32_t slot[kDigitSlots] = {0u, 0u, 0u};
+  uint32_t x = lane;
+#pragma unroll
+  for (int j = kMaxDigits - 1; j >= 0; --j) {
+    if (j < da.k) {
+      const uint32_t q = x / 10u;
+      const uint32_t c = (48u + (x - q * 10u)) << da.shift[j];
+      x = q;
+      const int rel = da.word[j] - da.base_word;
+#pragma unroll
+      for (int s = 0; s < kDigitSlots; ++s) slot[s] |= rel == s ? c : 0u;
+    }
+  }
+  uint32_t w[NB * 16];
+#pragma unroll
+  for (int i = 0; i < NB * 16; ++i) {
+    const int rel = i - da.base_word;
+    uint32_t v = tmpl[i];
+#pragma unroll
+    for (int s = 0; s < kDigitSlots; ++s) v |= rel == s ? slot[s] : 0u;
+    w[i] = v;
+  }
+  uint32_t st[8], out[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] = mid[i];
+#pragma unroll
+  for (int blk = 0; blk < NB; ++blk) {
+    compress(st, w + blk * 16, out);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st[i] = out[i];
+  }
+  h0 = st[0];
+  h1 = st[1];
+}
+
+}  // namespace bmt

@@ -1,0 +1,177 @@
+"""Blocking facades over the asyncio LSP core.
+
+The reference's frozen APIs are goroutine-blocking (``lsp/client_api.go``,
+``lsp/server_api.go``); Python callers (the miner binary, test and smoke
+harness threads) get the same shape here: each facade owns a dedicated
+event-loop thread and proxies calls with ``run_coroutine_threadsafe``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+from concurrent.futures import CancelledError as FutureCancelledError
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeoutError
+from typing import Any, Callable, Coroutine, Optional, Tuple
+
+from .aio import AsyncClient, AsyncServer
+from .errors import ConnClosedError
+from .params import Params
+
+
+class _LoopThread:
+    """A daemon thread running a private asyncio loop."""
+
+    def __init__(self, name: str) -> None:
+        self.loop = asyncio.new_event_loop()
+        self._stopping = False
+
+        def _run() -> None:
+            try:
+                self.loop.run_forever()
+            finally:
+                # Resolve anything scheduled in the stop window: a
+                # run_coroutine_threadsafe that raced loop.stop() would
+                # otherwise leave its caller blocked forever.
+                pending = asyncio.all_tasks(self.loop)
+                for t in pending:
+                    t.cancel()
+                if pending:
+                    self.loop.run_until_complete(
+                        asyncio.gather(*pending, return_exceptions=True)
+                    )
+                self.loop.close()
+
+        self._thread = threading.Thread(target=_run, name=name, daemon=True)
+        self._thread.start()
+
+    def run(self, coro: "Coroutine", timeout: Optional[float] = None) -> Any:
+        if self._stopping:
+            coro.close()
+            raise ConnClosedError()
+        try:
+            fut: Future = asyncio.run_coroutine_threadsafe(coro, self.loop)
+        except RuntimeError:  # loop already shut down by close()
+            coro.close()
+            raise ConnClosedError()
+        try:
+            return fut.result(timeout)
+        except (asyncio.CancelledError, FutureCancelledError):
+            # Both spellings: run_coroutine_threadsafe's Future raises the
+            # concurrent.futures class when stop() cancels it before the
+            # coroutine ran, which is NOT asyncio.CancelledError here.
+            raise ConnClosedError()
+        except FutureTimeoutError:
+            # Deadline expired with the coroutine still pending: cancel it
+            # on the loop and surface the builtin TimeoutError.  After a
+            # timeout the conn's read stream is undefined; close the conn.
+            fut.cancel()
+            raise TimeoutError(f"no result within {timeout:g}s")
+
+    def call(self, fn: Callable, *args: Any) -> Any:
+        """Run a plain callable on the loop thread (for non-async mutations
+        that must happen on the owning loop)."""
+        done: Future = Future()
+
+        def _invoke() -> None:  # on-loop: runs via call_soon_threadsafe
+            try:
+                done.set_result(fn(*args))
+            except BaseException as e:  # propagate to caller
+                done.set_exception(e)
+
+        try:
+            self.loop.call_soon_threadsafe(_invoke)
+        except RuntimeError:  # loop already shut down by close()
+            raise ConnClosedError()
+        return done.result()
+
+    def stop(self) -> None:
+        self._stopping = True
+        try:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+        except RuntimeError:
+            return  # already stopped
+        self._thread.join(timeout=5)
+
+
+class Client:
+    """Blocking LSP client (API parity: lsp/client_api.go:6-30).
+
+    ``Client(host, port, params)`` performs the handshake and raises
+    CannotEstablishConnectionError after EpochLimit silent epochs.
+    """
+
+    def __init__(
+        self, host: str, port: int, params: Optional[Params] = None
+    ) -> None:
+        self._lt = _LoopThread(f"lsp-client-{host}:{port}")
+        try:
+            self._c: AsyncClient = self._lt.run(
+                AsyncClient.connect(host, port, params)
+            )
+        except BaseException:
+            self._lt.stop()
+            raise
+
+    def conn_id(self) -> int:
+        return self._c.conn_id
+
+    def read(self, timeout: Optional[float] = None) -> bytes:
+        """Block until the next in-order message; raises after loss/close.
+        ``timeout`` (seconds) raises the builtin ``TimeoutError`` instead
+        of blocking forever."""
+        return self._lt.run(self._c.read(), timeout)
+
+    def write(self, payload: bytes) -> None:
+        self._lt.call(self._c.write, payload)
+
+    def close(self) -> None:
+        """Block until pending sends are acked (or the conn is lost).
+        Idempotent: a second close is a no-op."""
+        try:
+            self._lt.run(self._c.close())
+        except ConnClosedError:
+            return  # already closed
+        finally:
+            self._lt.stop()
+
+
+class Server:
+    """Blocking LSP server (API parity: lsp/server_api.go:6-39)."""
+
+    def __init__(
+        self, port: int, params: Optional[Params] = None, host: str = "127.0.0.1"
+    ) -> None:
+        self._lt = _LoopThread(f"lsp-server-:{port}")
+        try:
+            self._s: AsyncServer = self._lt.run(
+                AsyncServer.create(port, params, host)
+            )
+        except BaseException:
+            self._lt.stop()
+            raise
+
+    @property
+    def port(self) -> int:
+        return self._s.port
+
+    def read(self) -> Tuple[int, bytes]:
+        """Block for the next message from any client.  Raises ConnLostError
+        (with .conn_id) when a client dies, ConnClosedError once closed."""
+        return self._lt.run(self._s.read())
+
+    def write(self, conn_id: int, payload: bytes) -> None:
+        self._lt.call(self._s.write, conn_id, payload)
+
+    def close_conn(self, conn_id: int) -> None:
+        self._lt.call(self._s.close_conn, conn_id)
+
+    def close(self) -> None:
+        """Idempotent graceful shutdown."""
+        try:
+            self._lt.run(self._s.close())
+        except ConnClosedError:
+            return  # already closed
+        finally:
+            self._lt.stop()

@@ -1,0 +1,83 @@
+"""Build the port's CUDA source at first use and load it with ctypes.
+
+``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` into
+``build/lib<name>.so`` beside the package (the directory is listed in
+``.gitignore``): no PyTorch headers, so a build takes seconds.  Builds run
+under one lock, because the sweep pipeline's dispatcher thread and a direct
+caller can reach the kernel at once.  A missing ``nvcc`` or a failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def nvcc_path() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
+        "kernels build only on a machine with the CUDA toolkit"
+    )
+
+
+def build(name: str, verbose: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so`` unless a
+    library newer than every file in ``csrc/`` is there.  ``verbose``
+    always compiles, with ``-Xptxas -v``, and prints nvcc's output
+    (registers, shared memory and spills per kernel).  Returns the library
+    path."""
+    src = CSRC_DIR / f"{name}.cu"
+    if not src.exists():
+        raise KernelBuildError(f"no kernel source {src}")
+    out = BUILD_DIR / f"lib{name}.so"
+    with _lock:
+        newest = max(p.stat().st_mtime for p in CSRC_DIR.iterdir())
+        if out.exists() and out.stat().st_mtime >= newest and not verbose:
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".so.{os.getpid()}.tmp")
+        cmd = [
+            nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR), "-o", str(tmp), str(src),
+        ]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if verbose or proc.returncode != 0:
+            print(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}", flush=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
+                f"{proc.stderr[-4000:]}"
+            )
+        os.replace(tmp, out)
+        return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built first if needed.  Callers
+    keep the loaded handle."""
+    return ctypes.CDLL(str(build(name)))

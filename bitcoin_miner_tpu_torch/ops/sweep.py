@@ -1,0 +1,559 @@
+"""Blockwise nonce-range sweep: decomposition + min-hash dispatches.
+
+Port of ``bitcoin_miner_tpu/ops/sweep.py`` for the sha256 family on one
+device.  Decomposition invariants (unchanged from the reference):
+
+- Nonces are grouped by decimal **digit count** ``d`` (the hashed string's
+  length depends on it), then into **10^k-aligned chunks** so the high
+  ``d-k`` digits are constant per chunk and are folded into the message
+  template on the host; only the low ``k`` digits vary per lane.
+- A dispatch processes B chunks at once (``(B, 10^k)`` lanes) and returns
+  the lexicographic min of the big-endian ``(h0, h1)`` hash pair and the
+  flat argmin lane, lowest-nonce tie-break.
+
+Rungs: ``cuda`` runs the hand-written kernel (ops/sha256_minhash.py) on a
+CUDA device; ``torch`` runs its plain PyTorch version on the given device
+(the CPU rung of the tests).  Not ported yet: the mesh, hot-plane and
+factored rungs and the native C++ host tier.
+"""
+
+from __future__ import annotations
+
+import collections
+import functools
+import os as _os
+import time as _time
+from dataclasses import dataclass
+from typing import Deque, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.platform import resolve_device
+from .sha256 import MsgLayout, build_layout
+from .sha256_minhash import minhash, minhash_plain
+
+U32_MAX = 0xFFFFFFFF
+I32_MAX = 0x7FFFFFFF
+
+
+# --------------------------------------------------------------------------
+# Range decomposition (host)
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Chunk:
+    """A 10^k-aligned slice of a digit bucket: nonces ``base + [lo_off,
+    hi_off)`` all share the same decimal digit count and high digits."""
+
+    base: int
+    lo_off: int
+    hi_off: int  # exclusive
+
+
+@dataclass(frozen=True)
+class ChunkGroup:
+    """Chunks sharing digit count ``d`` and low-digit count ``k`` (and hence
+    one message layout)."""
+
+    d: int
+    k: int
+    chunks: Tuple[Chunk, ...]
+
+
+def decompose_range(lower: int, upper: int, max_k: int = 6) -> Iterator[ChunkGroup]:
+    """Split inclusive ``[lower, upper]`` into digit-bucketed aligned chunks.
+
+    ``max_k`` caps lanes-per-chunk at 10^max_k; larger buckets become many
+    chunks.  Yields groups in ascending nonce order.
+    """
+    if lower > upper:
+        raise ValueError(f"empty nonce range [{lower}, {upper}]")
+    if lower < 0:
+        raise ValueError(f"negative nonce {lower}")
+    d_lo = len(str(lower))
+    d_hi = len(str(upper))
+    for d in range(d_lo, d_hi + 1):
+        bucket_lo = 0 if d == 1 else 10 ** (d - 1)
+        bucket_hi = 10**d - 1
+        lo = max(lower, bucket_lo)
+        hi = min(upper, bucket_hi)
+        if lo > hi:
+            continue
+        k = 1 if d == 1 else min(d - 1, max_k)
+        span = 10**k
+        chunks = []
+        for c in range(lo // span, hi // span + 1):
+            base = c * span
+            chunks.append(
+                Chunk(base=base, lo_off=max(lo - base, 0), hi_off=min(hi - base + 1, span))
+            )
+        yield ChunkGroup(d=d, k=k, chunks=tuple(chunks))
+
+
+@functools.lru_cache(maxsize=256)
+def _layout_cache(data: bytes, d: int) -> MsgLayout:
+    return build_layout(data, d)
+
+
+def _fill_templates(
+    layout: MsgLayout, group: ChunkGroup, chunk_rows: Sequence[Chunk], batch: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side: fold each chunk's constant high digits into the word
+    template; build the (B, 2) lane-bound array, padding unused rows empty."""
+    tail_const = np.tile(
+        np.array(layout.tail_template, dtype=np.uint64), (batch, 1)
+    )  # u64 scratch to avoid overflow warnings, cast at the end
+    bounds = np.zeros((batch, 2), dtype=np.int32)
+    span = 10**group.k
+    n_high = layout.digit_count - group.k
+    for r, ch in enumerate(chunk_rows):
+        if n_high > 0:
+            high = str(ch.base // span)
+            if len(high) != n_high:
+                raise AssertionError((high, n_high, ch))
+            for j, ch_digit in enumerate(high):
+                dp = layout.digit_pos[j]
+                tail_const[r, dp.word] |= ord(ch_digit) << dp.shift
+        bounds[r] = (ch.lo_off, ch.hi_off)
+    return tail_const.astype(np.uint32), bounds
+
+
+# --------------------------------------------------------------------------
+# Host sweep loop
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class SweepResult:
+    hash: int  # the 64-bit big-endian hash value
+    nonce: int
+    lanes_swept: int  # valid nonces hashed (for throughput accounting)
+
+
+def auto_tune(
+    backend: Optional[str],
+    batch: Optional[int],
+    max_k: Optional[int],
+    sieve: Optional[bool],
+    device: torch.device,
+) -> Tuple[str, int, int, bool]:
+    """Resolve ``(backend, rows-per-dispatch, max_k, sieve)`` for a device.
+
+    ``backend=None`` is ``cuda`` on a CUDA device and ``torch`` elsewhere.
+    The ``cuda`` defaults (batch 1024, max_k 6: ~1e9 lanes per dispatch,
+    sieve on) are the TPU tier's shape, kept provisionally until an H100
+    measurement prices them.  The ``torch`` rung keeps the reference xla
+    tier's small defaults (batch 4, max_k 5, sieve off) so a CPU sweep stays
+    small.  ``batch * 10^max_k`` must fit the kernel's int32 flat index."""
+    if backend is None:
+        backend = "cuda" if device.type == "cuda" else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown sweep backend {backend!r} (cuda or torch)")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(f"the cuda backend needs a CUDA device, got {device}")
+    if batch is None:
+        batch = 1024 if backend == "cuda" else 4
+    if max_k is None:
+        max_k = 6 if backend == "cuda" else 5
+    if sieve is None:
+        sieve = backend == "cuda"
+    if batch < 1 or max_k < 1:
+        raise ValueError(f"batch ({batch}) and max_k ({max_k}) must be >= 1")
+    if batch * 10**max_k > I32_MAX:
+        raise ValueError(
+            f"batch ({batch}) * 10^max_k ({10**max_k}) lanes overflow the "
+            "int32 argmin index; lower batch or max_k"
+        )
+    return backend, batch, max_k, sieve
+
+
+@dataclass(frozen=True)
+class HostFold:
+    """A ``(hash, nonce)`` candidate computed on the host for a tiny digit
+    class, passed through a sweep's ``consume`` in place of a device
+    output, so a one-off ``10^d`` bucket costs no device dispatch."""
+
+    hash: int
+    nonce: int
+
+
+def _host_min(data: str, lo: int, hi: int) -> Tuple[int, int]:
+    """Host-tier ``(min hash, argmin nonce)`` over inclusive ``[lo, hi]``:
+    the hashlib oracle (the native C++ tier is not ported yet)."""
+    from ..bitcoin.hash import min_hash_range
+
+    return min_hash_range(data, lo, hi)
+
+
+def auto_host_lane_budget() -> int:
+    """Largest digit-class size worth computing on the host instead of on
+    the device: ~0.1 s of hashlib work."""
+    return 10**5
+
+
+def run_sweep_dispatches(
+    data: str,
+    lower: int,
+    upper: int,
+    max_k: int,
+    batch: int,
+    get_kernel,
+    run_kernel,
+    consume,
+    max_inflight: int = 32,
+    host_lane_budget: int = 0,
+) -> int:
+    """The decompose → template-fill → dispatch skeleton.
+
+    ``get_kernel(layout, group)`` returns the kernel for a shape class;
+    ``run_kernel(kern, midstate, tail_const, bounds)`` queues one dispatch
+    and returns its (not-yet-fetched) output handle;
+    ``consume(out, chunk_bases, 10^k)`` fetches and folds one result — it
+    must also accept a :class:`HostFold` as ``out`` (with None bases):
+    digit classes with ``10^d <= host_lane_budget`` are min-folded on the
+    host.  0 (the default) disables routing so library callers and kernel
+    tests always exercise the device path; the miner's pipeline passes
+    :func:`auto_host_lane_budget`.  At most ``max_inflight`` dispatches stay
+    queued.  Returns the number of lanes swept.
+    """
+    data_bytes = data.encode("utf-8")
+    pending: Deque[Tuple] = collections.deque()
+    lanes = 0
+    for group in decompose_range(lower, upper, max_k=max_k):
+        if 10**group.d <= host_lane_budget:
+            g_lo = group.chunks[0].base + group.chunks[0].lo_off
+            g_hi = group.chunks[-1].base + group.chunks[-1].hi_off - 1
+            h, n = _host_min(data, g_lo, g_hi)
+            pending.append((HostFold(h, n), None, None))
+            lanes += sum(c.hi_off - c.lo_off for c in group.chunks)
+            continue
+        layout = _layout_cache(data_bytes, group.d)
+        kern = get_kernel(layout, group)
+        midstate = np.array(layout.midstate, dtype=np.uint32)
+        for s in range(0, len(group.chunks), batch):
+            rows = group.chunks[s : s + batch]
+            tail_const, bounds = _fill_templates(layout, group, rows, batch)
+            out = run_kernel(kern, midstate, tail_const, bounds)
+            pending.append((out, [c.base for c in rows], 10**group.k))
+            lanes += sum(c.hi_off - c.lo_off for c in rows)
+            if len(pending) > max_inflight:
+                consume(*pending.popleft())
+    while pending:
+        consume(*pending.popleft())
+    return lanes
+
+
+def _build_kernel(backend: str, layout: MsgLayout, group: ChunkGroup):
+    """The kernel for one digit class: the CUDA wrapper or the plain
+    version, bound to the class's k low digit positions.  One binary serves
+    every class, so nothing is compiled per class."""
+    low_pos = layout.digit_pos[layout.digit_count - group.k :]
+    fn = minhash if backend == "cuda" else minhash_plain
+    return functools.partial(fn, low_pos=low_pos)
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        # Pinned staging so the upload is asynchronous on the caller's
+        # stream; the caching host allocator keeps the block until the
+        # copy has run.
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _invoke_kernel(kern, device, midstate, tail_const, bounds, thresh=None):
+    """One dispatch: upload the operands and call the kernel.  ``thresh``
+    (sieve only) is the host's running-min h0 as a plain int in
+    ``[0, U32_MAX]`` — U32_MAX (everything survives) until the first
+    candidate lands."""
+    return kern(
+        midstate=_to_device(midstate, device),
+        tail=_to_device(tail_const, device),
+        bounds=_to_device(bounds, device),
+        thresh=thresh,
+    )
+
+
+def _fold(best: List[Tuple[int, int]], cand: Tuple[int, int]) -> None:
+    if not best or cand < best[0]:
+        best[:] = [cand]
+
+
+def _candidate(vals, bases, n_lanes) -> Optional[Tuple[int, int]]:
+    """``(hash, nonce)`` of one dispatch's ``(h0, h1, flat_idx)``, or None
+    for a fully-masked dispatch or (sieve) one where no lane beat the
+    threshold."""
+    h0, h1, fi = (int(v) for v in vals)
+    if fi == I32_MAX:
+        return None
+    return ((h0 << 32) | h1, bases[fi // n_lanes] + fi % n_lanes)
+
+
+#: Device-runtime fault injection: ``BMT_WEDGE_DISPATCH=N`` makes the N-th
+#: result fetched by the FIRST armed pipeline in this process hang until
+#: that pipeline is closed — what a wedged device looks like from outside.
+#: One-shot per process, like the reference's.
+_WEDGE_STATE = {"fired": False}
+
+
+class SweepPipeline:
+    """Cross-request sweep pipeline: the device never idles between jobs.
+
+    One dispatcher thread enqueues every job's dispatches, FIFO, on a
+    dedicated CUDA stream (entered inside that thread: torch's current
+    stream is per thread); each dispatch's 3-word output is copied into a
+    pinned host buffer and an event is recorded behind it.  A fetcher
+    thread waits on those events in the same order and resolves each job's
+    future when its last dispatch lands.  ``max_inflight`` bounds the
+    unfetched dispatches (backpressure); the sieve threshold is the job's
+    running min known at enqueue time.
+
+    The reference warms each digit class's kernel ahead of time; here one
+    binary serves every class and builds on the first dispatch, so there is
+    nothing to prewarm.  ``submit`` is thread-safe.
+    """
+
+    _DONE = object()
+
+    def __init__(
+        self,
+        *,
+        max_k: Optional[int] = None,
+        batch: Optional[int] = None,
+        backend: Optional[str] = None,
+        device=None,
+        max_inflight: int = 32,
+        host_lane_budget: Optional[int] = None,
+        sieve: Optional[bool] = None,
+    ) -> None:
+        import queue as _queue
+        import threading
+        from concurrent.futures import Future
+
+        self._Future = Future
+        self._device = resolve_device(device)
+        self._backend, self._batch, self._max_k, self._sieve = auto_tune(
+            backend, batch, max_k, sieve, self._device
+        )
+        self._host_lane_budget = (
+            auto_host_lane_budget() if host_lane_budget is None
+            else host_lane_budget
+        )
+        self._stream = (
+            torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
+        )
+        try:
+            self._wedge_after = int(_os.environ.get("BMT_WEDGE_DISPATCH", "0") or 0)
+        except ValueError:
+            self._wedge_after = 0
+        self._fetched_count = 0
+        self._jobs: "_queue.Queue" = _queue.Queue()
+        self._fetches: "_queue.Queue" = _queue.Queue(maxsize=max_inflight)
+        self._closed = False
+        self._dispatcher = threading.Thread(
+            target=self._dispatch_loop, name="sweep-dispatch", daemon=True
+        )
+        self._fetcher = threading.Thread(
+            target=self._fetch_loop, name="sweep-fetch", daemon=True
+        )
+        self._dispatcher.start()
+        self._fetcher.start()
+
+    def submit(self, data: str, lower: int, upper: int):
+        """Queue one sweep; returns a Future of :class:`SweepResult`."""
+        if self._closed:
+            raise RuntimeError("pipeline closed")
+        fut = self._Future()
+        self._jobs.put((data, lower, upper, fut))
+        return fut
+
+    def close(self) -> None:
+        """Stop both worker threads and reap them: the sentinel flows jobs
+        -> dispatcher -> fetches -> fetcher, so both exit once work queued
+        ahead of it drains.  The joins are timed — a wedged fetch must not
+        turn close() into a hang."""
+        self._closed = True
+        self._jobs.put(None)
+        self._dispatcher.join(timeout=1)
+        self._fetcher.join(timeout=1)
+
+    # ------------------------------------------------------------- threads
+
+    @staticmethod
+    def _fail(fut, e: BaseException) -> None:
+        """Resolve a Future to an error, tolerating the dispatcher/fetcher
+        race where both observe the same failure."""
+        try:
+            fut.set_exception(e)
+        except Exception:
+            pass  # already resolved by the other thread
+
+    def _get_kernel(self, layout, group):
+        return _build_kernel(self._backend, layout, group)
+
+    def _dispatch_loop(self) -> None:
+        import contextlib
+
+        ctx = (
+            torch.cuda.stream(self._stream) if self._stream is not None
+            else contextlib.nullcontext()
+        )
+        with ctx:
+            self._dispatch_jobs()
+
+    def _dispatch_jobs(self) -> None:
+        while True:
+            item = self._jobs.get()
+            if item is None:
+                self._fetches.put(None)
+                return
+            data, lower, upper, fut = item
+            state = {"best": [], "lanes": 0, "fut": fut}
+
+            def run_kernel(kern, midstate, tail_const, bounds):
+                th = None
+                if self._sieve:
+                    # The running-min h0 at ENQUEUE time (the fetcher
+                    # updates state["best"]; a stale, looser read is
+                    # conservative-correct, so no lock).
+                    b = state["best"]
+                    th = (b[0][0] >> 32) if b else U32_MAX
+                t_enq = _time.monotonic()
+                out = _invoke_kernel(
+                    kern, self._device, midstate, tail_const, bounds, thresh=th
+                )
+                if self._stream is None:
+                    return (out, None, t_enq)
+                host = torch.empty(3, dtype=torch.int64, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self._stream)
+                return (host, ev, t_enq)
+
+            def consume(out, bases, n_lanes) -> None:
+                # Blocks when max_inflight results are unfetched — that's
+                # the backpressure; the device queue stays deep meanwhile.
+                self._fetches.put((state, out, bases, n_lanes))
+
+            try:
+                state["lanes"] = run_sweep_dispatches(
+                    data,
+                    lower,
+                    upper,
+                    self._max_k,
+                    self._batch,
+                    self._get_kernel,
+                    run_kernel,
+                    consume,
+                    host_lane_budget=self._host_lane_budget,
+                )
+            except BaseException as e:  # resolve, don't kill the pipeline
+                self._fail(fut, e)
+                continue
+            self._fetches.put((state, self._DONE, None, None))
+
+    def _fetch_loop(self) -> None:
+        while True:
+            item = self._fetches.get()
+            if item is None:
+                return
+            state, out, bases, n_lanes = item
+            fut = state["fut"]
+            if (
+                self._wedge_after
+                and out is not self._DONE
+                and not _WEDGE_STATE["fired"]
+            ):
+                self._fetched_count += 1
+                if self._fetched_count >= self._wedge_after:
+                    # Injected wedge: this fetch never completes until
+                    # close().
+                    _WEDGE_STATE["fired"] = True
+                    while not self._closed:
+                        _time.sleep(0.02)
+                    continue  # closing: drop the fetch, future stays open
+            if out is self._DONE:
+                if not fut.done():  # not already failed by the dispatcher
+                    best = state["best"]
+                    if not best:
+                        self._fail(
+                            fut, RuntimeError("sweep produced no candidates")
+                        )
+                    else:
+                        fut.set_result(
+                            SweepResult(
+                                hash=best[0][0],
+                                nonce=best[0][1],
+                                lanes_swept=state["lanes"],
+                            )
+                        )
+                continue
+            if fut.done():
+                continue  # job already failed; drain its remaining fetches
+            if isinstance(out, HostFold):
+                _fold(state["best"], (out.hash, out.nonce))
+                continue
+            try:
+                vals, ev, _t_enq = out
+                if ev is not None:
+                    ev.synchronize()  # blocks until the dispatch lands
+                cand = _candidate(vals.tolist(), bases, n_lanes)
+                if cand is not None:
+                    _fold(state["best"], cand)
+            except BaseException as e:
+                self._fail(fut, e)
+
+
+def sweep_min_hash(
+    data: str,
+    lower: int,
+    upper: int,
+    *,
+    max_k: Optional[int] = None,
+    batch: Optional[int] = None,
+    backend: Optional[str] = None,
+    device=None,
+    host_lane_budget: int = 0,
+    sieve: Optional[bool] = None,
+) -> SweepResult:
+    """Find ``(min Hash(data, n), argmin n)`` over inclusive ``[lower,
+    upper]``.  Bit-exact vs the hashlib oracle
+    (``bitcoin_miner_tpu_torch.bitcoin.hash_nonce``); ties -> lowest nonce.
+
+    ``device``: None is the CUDA card (raises without one); ``"cpu"`` runs
+    the plain version.  ``backend``/``batch``/``max_k``/``sieve``: see
+    :func:`auto_tune`.
+    """
+    dev = resolve_device(device)
+    backend, batch, max_k, sieve = auto_tune(backend, batch, max_k, sieve, dev)
+    best: List[Tuple[int, int]] = []  # [(hash, nonce)] — current minimum
+
+    def get_kernel(layout, group):
+        return _build_kernel(backend, layout, group)
+
+    def run_kernel(kern, midstate, tail_const, bounds):
+        th = None
+        if sieve:
+            # The running-min h0 at enqueue time; queued dispatches may
+            # carry a stale (looser) bound — conservative-correct.
+            th = (best[0][0] >> 32) if best else U32_MAX
+        return _invoke_kernel(kern, dev, midstate, tail_const, bounds, thresh=th)
+
+    def consume(out, bases, n_lanes):
+        if isinstance(out, HostFold):
+            _fold(best, (out.hash, out.nonce))
+            return
+        cand = _candidate(out.tolist(), bases, n_lanes)
+        if cand is not None:
+            _fold(best, cand)
+
+    lanes = run_sweep_dispatches(
+        data, lower, upper, max_k, batch, get_kernel, run_kernel, consume,
+        host_lane_budget=host_lane_budget,
+    )
+    if not best:
+        raise RuntimeError("sweep produced no candidates")
+    return SweepResult(hash=best[0][0], nonce=best[0][1], lanes_swept=lanes)

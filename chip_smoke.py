@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (bitcoin_miner_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run non-zero, with no result line):
+
+1. environment — the card's name and power limit (nvidia-smi) and
+   torch.cuda.get_device_name(0);
+2. build — the kernel source in bitcoin_miner_tpu_torch/csrc with nvcc for
+   sm_90a, printing ``-Xptxas -v`` and the static SASS mix per kernel;
+3. kernel vs plain — the min-hash kernel against its plain PyTorch version
+   on the card, bit-exact, over both sieve forms, 1 and 2 tail blocks, k 5
+   and 6, partial-bound and padding rows and three thresholds; then at the
+   main path's own shape (1024 rows x 10^6 lanes, 1 and 2 tail blocks) and
+   a 500-row partial batch;
+4. main path — the port miner's ``main`` (``--backend cuda``) in a thread,
+   served by this script through the port's own LSP server with Requests of
+   at most 1e9 nonces; every Result is checked against hashlib, the job's
+   fold against a 5e8-nonce split, a Request across 1e9 against the
+   ``min_hash_range`` oracle, and the kernel's launch count;
+5. numbers — kernel ms per full dispatch (CUDA events, each timed output
+   held to the plain version), the plain version's ms at that shape and the
+   bound, nonces/s per Request, each beside the card.
+
+Prints the kernels' JSON line, then the nvidia-smi line, then
+``{"ok": true, "device": {...}}`` as the last line.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import threading
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+U32_MAX = 0xFFFFFFFF
+I32_MAX = 0x7FFFFFFF
+REPLACES = "bitcoin_miner_tpu/ops/pallas_sha256.py:93"
+SOURCE = "bitcoin_miner_tpu_torch/csrc/sha256_minhash.cu"
+TWO_BLOCK_DATA = "The quick brown fox jumps over the lazy dog again!"  # 50 chars
+MAIN_B, MAIN_K = 1024, 6  # the cuda rung's batch and max_k (ops/sweep.py auto_tune)
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def smi(query: str) -> str:
+    from bitcoin_miner_tpu_torch.utils.platform import nvidia_smi
+
+    return nvidia_smi(query) or ""
+
+
+def sass_mix(lib_path, nvcc: str) -> dict:
+    """Static SASS instruction counts of each min-hash kernel instance in
+    the built library (``cuobjdump -sass``), by opcode class: what the
+    compiled lane loop issues, beside the derived minimum of ``lane_ops``.
+    Empty when cuobjdump is not beside nvcc."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=120).stdout
+    mixes, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            t = re.search(r"minhash_kernelILi(\d)ELb([01])E", m.group(1))
+            cur = None
+            if t:
+                cur = mixes.setdefault(
+                    f"minhash_kernel<{t.group(1)}, {'true' if t.group(2) == '1' else 'false'}>",
+                    {"SHF": 0, "LOP3": 0, "IADD3": 0, "IMAD": 0, "other": 0, "total": 0})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if cur is not None and m:
+            op = m.group(1)
+            cur[op if op in cur else "other"] += 1
+            cur["total"] += 1
+    return mixes
+
+
+class Smoke:
+    def __init__(self, torch) -> None:
+        self.torch = torch
+        self.dev = torch.device("cuda", 0)
+        self.card = ""
+        self.failures = []
+        self.k_stats = {}
+        self.main_ops = {}  # n_tb -> (operands, plain result, plain ms) of a full dispatch
+
+    # ------------------------------------------------------------ helpers
+
+    def operands(self, data: str, d: int, k: int, rows, ntb_expect=None):
+        """Device operands of one dispatch: rows = [(high_base_nonce, lo,
+        hi)], plus padding rows (None)."""
+        from bitcoin_miner_tpu_torch.ops.sweep import Chunk, ChunkGroup, _fill_templates
+        from bitcoin_miner_tpu_torch.ops.sha256 import build_layout
+        import numpy as np
+
+        torch = self.torch
+        lay = build_layout(data.encode(), d)
+        if ntb_expect is not None and lay.n_tail_blocks != ntb_expect:
+            raise AssertionError(f"{data!r} d={d}: {lay.n_tail_blocks} tail blocks")
+        chunks = [Chunk(base=b, lo_off=lo, hi_off=hi) for b, lo, hi in rows if b is not None]
+        group = ChunkGroup(d=d, k=k, chunks=tuple(chunks))
+        tail, bounds = _fill_templates(lay, group, chunks, len(rows))
+        return dict(
+            midstate=torch.from_numpy(np.array(lay.midstate, dtype=np.uint32)).to(self.dev),
+            tail=torch.from_numpy(tail).to(self.dev),
+            bounds=torch.from_numpy(bounds).to(self.dev),
+            low_pos=lay.digit_pos[d - k:],
+        ), chunks, lay
+
+    def time_kernel(self, fn, reps: int = 10):
+        """(ms per call by CUDA events, the last call's output as a list)."""
+        torch = self.torch
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps, out.tolist()
+
+    # ------------------------------------------------------------- phases
+
+    def phase_env(self) -> None:
+        from bitcoin_miner_tpu_torch.utils.platform import device_desc
+
+        torch = self.torch
+        self.card = smi("name,power.limit")
+        log(f"nvidia-smi: {self.card}")
+        log(f"torch.cuda.get_device_name(0): {torch.cuda.get_device_name(0)}")
+        log(f"device_desc: {device_desc()}")
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+            f"devices {torch.cuda.device_count()} python {sys.version.split()[0]}")
+
+    def phase_build(self) -> None:
+        from bitcoin_miner_tpu_torch.ops import _build
+
+        t0 = time.monotonic()
+        path = _build.build("sha256_minhash", verbose=True)
+        log(f"built {os.path.relpath(path, ROOT)} in {time.monotonic() - t0:.1f} s")
+        self.k_stats["sass"] = sass_mix(path, _build.nvcc_path())
+        for name, mix in self.k_stats["sass"].items():
+            log(f"  static SASS of {name}: {mix}")
+
+    def phase_compare(self) -> None:
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash, minhash_plain, sieved
+
+        torch = self.torch
+        max_err = 0
+        n_cases = 0
+        for data, d, ntb in (("cmu440", 10, 1), (TWO_BLOCK_DATA, 10, 2)):
+            for k in (6, 5):
+                span = 10**k
+                hb = 10 ** (d - 1) // span + 7  # any high-digit prefix of class d
+                rows = [
+                    (hb * span, 0, span),                 # full row
+                    ((hb + 3) * span, 123, span - 77),    # partial bounds
+                    ((hb + 9) * span, span // 2, span // 2 + 1000),
+                    (None, 0, 0),                         # padding row
+                ]
+                ops, chunks, _lay = self.operands(data, d, k, rows, ntb)
+                full = minhash(**ops)
+                torch.cuda.synchronize()
+                ref = minhash_plain(**ops)
+                h0, h1, fi = full.tolist()
+                if fi == I32_MAX:
+                    raise AssertionError("full fold found no lane")
+                nonce = chunks[fi // span].base + fi % span
+                if ((h0 << 32) | h1) != hash_nonce(data, nonce):
+                    raise AssertionError(f"kernel min disagrees with hashlib at {nonce}")
+                cases = [
+                    ("full", None),
+                    ("sieve U32_MAX", U32_MAX),
+                    ("sieve thresh == min h0 (tie survives)", h0),
+                    ("sieve thresh < min h0 (I32_MAX)", h0 - 1),
+                ]
+                for label, th in cases:
+                    got = minhash(**ops, thresh=th)
+                    torch.cuda.synchronize()
+                    want = ref if th is None else minhash_plain(**ops, thresh=th)
+                    err = int((got - want).abs().max())
+                    max_err = max(max_err, err)
+                    n_cases += 1
+                    log(f"  n_tb={ntb} k={k} {label}: kernel {got.tolist()} "
+                        f"plain {want.tolist()} {'OK' if err == 0 else 'MISMATCH'}")
+                    if err:
+                        raise AssertionError(f"kernel != plain ({label}, n_tb={ntb}, k={k})")
+                    if th is not None and th < h0 and got.tolist() != [U32_MAX, U32_MAX, I32_MAX]:
+                        raise AssertionError("threshold below the min did not give the sentinel")
+        # The main path's own dispatches: B=1024 rows x 10^6 lanes at d=10
+        # (flat_idx up to 1.024e9, grid.y 1024), and the partial batch of a
+        # 5e8-nonce Request (500 rows, then padding).  The plain version runs
+        # once per dispatch (its full fold, timed); each threshold's expected
+        # output is that fold through ``sieved``, minhash_plain's own rule.
+        for data, ntb, n_valid in (("cmu440", 1, MAIN_B), ("cmu440", 1, 500),
+                                   (TWO_BLOCK_DATA, 2, MAIN_B)):
+            rows = [((10**3 + r) * 10**MAIN_K, 0, 10**MAIN_K) for r in range(n_valid)]
+            rows += [(None, 0, 0)] * (MAIN_B - n_valid)
+            ops, chunks, _lay = self.operands(data, 10, MAIN_K, rows, ntb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = minhash_plain(**ops).tolist()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            nonce = chunks[ref[2] // 10**MAIN_K].base + ref[2] % 10**MAIN_K
+            if ((ref[0] << 32) | ref[1]) != hash_nonce(data, nonce):
+                raise AssertionError(f"plain min disagrees with hashlib at {nonce}")
+            for label, th in (("full", None), ("sieve U32_MAX", U32_MAX),
+                              ("sieve thresh == min h0", ref[0]),
+                              ("sieve thresh < min h0", ref[0] - 1)):
+                got = minhash(**ops, thresh=th).tolist()
+                want = list(sieved(ref, th))
+                n_cases += 1
+                ok = got == want
+                max_err = max(max_err, max(abs(a - b) for a, b in zip(got, want)))
+                log(f"  main-path dispatch B={MAIN_B} ({n_valid} rows valid) x 1e{MAIN_K}, "
+                    f"n_tb={ntb} {label}: kernel {got} plain {want} "
+                    f"{'OK' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"kernel != plain at the main-path shape ({label})")
+            log(f"  plain version {plain_ms:.1f} ms for {n_valid}e{MAIN_K} lanes, "
+                f"n_tb={ntb} [{self.card}]")
+            if n_valid == MAIN_B:
+                self.main_ops[ntb] = (ops, ref, plain_ms)
+        self.k_stats["max_abs_err"] = max_err
+        log(f"kernel == plain, bit-exact, in {n_cases} cases (tolerance 0)")
+
+    def phase_main_path(self) -> None:
+        from bitcoin_miner_tpu_torch import lsp
+        from bitcoin_miner_tpu_torch.apps import miner
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
+        from bitcoin_miner_tpu_torch.bitcoin.message import Message, MsgType
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+
+        server = lsp.Server(0)
+        port = server.port
+        rc = {}
+        t = threading.Thread(
+            target=lambda: rc.setdefault("rc", miner.main(
+                ["miner", f"127.0.0.1:{port}", "--backend", "cuda", "--reconnect", "0"])),
+            name="port-miner", daemon=True,
+        )
+        minhash.launches = 0  # counts from here on are the main path's
+        t.start()
+        try:
+            conn, payload = server.read()
+            msg = Message.unmarshal(payload)
+            if msg is None or msg.type != MsgType.JOIN:
+                raise AssertionError(f"expected Join, got {payload!r}")
+
+            def serve(data, ranges, pipelined):
+                """Send Requests, read Results FIFO; returns [(lo, hi, hash,
+                nonce, seconds)] with each Result checked against hashlib."""
+                out = []
+                if pipelined:
+                    t0 = time.monotonic()
+                    for lo, hi in ranges:
+                        server.write(conn, Message.request(data, lo, hi).marshal())
+                for lo, hi in ranges:
+                    if not pipelined:
+                        t0 = time.monotonic()
+                        server.write(conn, Message.request(data, lo, hi).marshal())
+                    while True:
+                        cid, p = server.read()
+                        r = Message.unmarshal(p)
+                        if cid == conn and r is not None and r.type == MsgType.RESULT:
+                            break
+                    dt = time.monotonic() - t0
+                    if pipelined:
+                        t0 = time.monotonic()
+                    if not lo <= r.nonce <= hi or r.hash != hash_nonce(data, r.nonce):
+                        raise AssertionError(f"bad Result {r} for [{lo}, {hi}]")
+                    out.append((lo, hi, r.hash, r.nonce, dt))
+                    log(f"  Request {data[:12]!r}[{lo}, {hi}] -> ({r.hash}, {r.nonce}) "
+                        f"{dt:.3f} s, {(hi - lo + 1) / dt:,.0f} nonces/s [{self.card}]")
+                return out
+
+            def split(lo, hi, size):
+                return [(a, min(a + size - 1, hi)) for a in range(lo, hi + 1, size)]
+
+            rates = []
+            for data, hi in (("cmu440", 3_999_999_999), (TWO_BLOCK_DATA, 999_999_999)):
+                coarse = serve(data, split(0, hi, 10**9), pipelined=False)
+                fine = serve(data, split(0, hi, 5 * 10**8), pipelined=True)
+                fold = min((h, n) for _lo, _hi, h, n, _dt in coarse)
+                fold2 = min((h, n) for _lo, _hi, h, n, _dt in fine)
+                if fold != fold2:
+                    raise AssertionError(f"{data!r}: 1e9 split {fold} != 5e8 split {fold2}")
+                log(f"job {data!r} [0, {hi}]: fold {fold} equal over both splits")
+                rates += [(data, lo, h, (h - lo + 1) / dt) for lo, h, _x, _n, dt in coarse]
+            lo, hi = 999_900_000, 1_000_099_999
+            (r,) = serve("cmu440", [(lo, hi)], pipelined=False)
+            want = min_hash_range("cmu440", lo, hi)
+            if (r[2], r[3]) != want:
+                raise AssertionError(f"[{lo}, {hi}]: miner {r[2:4]} != oracle {want}")
+            log(f"Request across 1e9 equals the min_hash_range oracle: {want}")
+            self.k_stats["launches"] = minhash.launches
+            self.k_stats["rates"] = rates
+            log(f"main path launched the kernel {minhash.launches} times")
+            if minhash.launches <= 0:
+                raise AssertionError("the main path never launched the kernel")
+        finally:
+            server.close()
+            t.join(timeout=60)
+            if t.is_alive():
+                raise AssertionError("the miner thread did not exit")
+        if rc.get("rc") != 0:
+            raise AssertionError(f"miner main returned {rc.get('rc')}")
+
+    def phase_numbers(self) -> None:
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
+            bound_seconds, lane_ops, lanes_valid, minhash, sieved)
+
+        clock_mhz = float((smi("clocks.max.sm").split() or ["0"])[0] or 0)
+        if not clock_mhz:
+            raise AssertionError("nvidia-smi gave no clocks.max.sm for the bound")
+        results = {}
+        for ntb, (ops, ref, plain_ms) in sorted(self.main_ops.items()):
+            # The steady-state threshold: the dispatch's own min h0 (from the
+            # plain version), which a sweep's running min reaches after its
+            # first dispatch.  Every timed call's output is held to plain.
+            runs = {}
+            for label, th in (("sieve", ref[0]), ("sieve U32_MAX", U32_MAX), ("full", None)):
+                ms, got = self.time_kernel(lambda: minhash(**ops, thresh=th))
+                if got != list(sieved(ref, th)):
+                    raise AssertionError(f"timed {label} dispatch {got} != plain {ref}")
+                runs[label] = ms
+            lanes = lanes_valid(ops["bounds"], MAIN_K)
+            bound = bound_seconds(lanes, ops["low_pos"], ntb, clock_mhz * 1e6) * 1e3
+            results[ntb] = (runs, bound, plain_ms, lane_ops(ops["low_pos"], ntb))
+            log(f"full dispatch B={MAIN_B} x 1e{MAIN_K} lanes, n_tb={ntb}: sieve (steady "
+                f"threshold) {runs['sieve']:.3f} ms, sieve (U32_MAX) "
+                f"{runs['sieve U32_MAX']:.3f} ms, full fold {runs['full']:.3f} ms; plain "
+                f"{plain_ms:.1f} ms; bound {bound:.3f} ms at {clock_mhz:.0f} MHz "
+                f"(lane ops logic, adds = {results[ntb][3]}); "
+                f"{lanes / runs['sieve'] * 1e3:.3e} nonces/s [{self.card}]")
+        runs, bound, plain_ms, ops1 = results[1]
+        runs2, bound2, plain_ms2, ops2 = results[2]
+        self.k_stats.update(
+            ms=runs["sieve"], ms_sieve_u32max=runs["sieve U32_MAX"],
+            ms_full_fold=runs["full"], plain_ms=plain_ms, bound_ms=bound,
+            lane_ops=ops1, ms_two_blocks=runs2["sieve"], plain_ms_two_blocks=plain_ms2,
+            bound_ms_two_blocks=bound2, lane_ops_two_blocks=ops2,
+            shape=f"B={MAIN_B} x 1e{MAIN_K} lanes, d=10, n_tb=1, sieve, steady threshold",
+            sm_clock_mhz=clock_mhz,
+        )
+        for data, lo, hi, rate in self.k_stats.get("rates", []):
+            log(f"nonces/s per Request {data[:12]!r}[{lo}, {hi}]: {rate:,.0f} [{self.card}]")
+
+    def run(self) -> int:
+        phases = [
+            ("environment", self.phase_env),
+            ("build", self.phase_build),
+            ("kernel vs plain", self.phase_compare),
+            ("main path", self.phase_main_path),
+            ("numbers", self.phase_numbers),
+        ]
+        for name, fn in phases:
+            log(f"== phase: {name}")
+            t0 = time.monotonic()
+            try:
+                fn()
+            except Exception:
+                traceback.print_exc()
+                self.failures.append(name)
+                log(f"== phase {name} FAILED")
+                if name in ("environment", "build"):
+                    break
+            log(f"== phase {name}: {time.monotonic() - t0:.1f} s")
+        if self.failures:
+            log(f"FAILED phases: {self.failures}")
+            return 1
+        s = self.k_stats
+        line = {"kernels": [{
+            "name": "sha256_minhash",
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES,
+            "launches": s["launches"],
+            "max_abs_err": s["max_abs_err"],
+            "ms": s["ms"],
+            "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": None,
+            **{key: s[key] for key in (
+                "shape", "ms_sieve_u32max", "ms_full_fold", "lane_ops", "ms_two_blocks",
+                "plain_ms_two_blocks", "bound_ms_two_blocks", "lane_ops_two_blocks",
+                "sm_clock_mhz", "sass")},
+        }]}
+        print(json.dumps(line), flush=True)
+        print(self.card, flush=True)
+        torch = self.torch
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import bitcoin_miner_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing beside this script: {e}",
+              file=sys.stderr)
+        return 2
+    return Smoke(torch).run()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,51 @@
+"""The port imports neither JAX nor the JAX package.
+
+Checked on the source (AST), not on ``sys.modules``: the test process itself
+has JAX loaded already.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "bitcoin_miner_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "bitcoin_miner_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) > 10
+    assert (ROOT / "bitcoin_miner_tpu_torch" / "csrc" / "sha256_minhash.cu").exists()
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_jax_import(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_checker_catches_forbidden_names():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("bitcoin_miner_tpu") and _forbidden("bitcoin_miner_tpu.ops.sha256")
+    assert not _forbidden("bitcoin_miner_tpu_torch")
+    assert not _forbidden("bitcoin_miner_tpu_torch.ops")
+    assert not _forbidden("jaxlib_free")

@@ -1,0 +1,82 @@
+"""The CUDA min-hash kernel against its plain PyTorch version, on the card.
+
+Marked ``gpu``: without a CUDA card each test skips with a reason.  This
+file imports only the port (no JAX), so it also runs on a machine without
+JAX; there the JAX-bound ``tests/conftest.py`` is skipped:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_gpu.py -m gpu
+
+Tolerance 0: the outputs are integers (hashes and a lane index).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bitcoin_miner_tpu_torch.bitcoin.hash import min_hash_range
+from bitcoin_miner_tpu_torch.ops import sweep
+from bitcoin_miner_tpu_torch.ops.sha256 import build_layout
+from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
+    I32_MAX,
+    U32_MAX,
+    minhash,
+    minhash_plain,
+)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _operands(data: str, d: int, k: int, batch: int, seed: int, device):
+    """One dispatch with random high digits, partial bounds and a padding
+    row, made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    lay = build_layout(data.encode(), d)
+    span = 10**k
+    chunks = []
+    for _ in range(batch - 1):
+        high = int(rng.integers(10 ** (d - k - 1), 10 ** (d - k)))
+        lo = int(rng.integers(0, span // 2))
+        chunks.append(sweep.Chunk(high * span, lo, int(rng.integers(lo + 1, span + 1))))
+    group = sweep.ChunkGroup(d=d, k=k, chunks=tuple(chunks))
+    tail, bounds = sweep._fill_templates(lay, group, chunks, batch)
+    return dict(
+        midstate=torch.tensor(lay.midstate, dtype=torch.int64).to(torch.uint32).to(device),
+        tail=torch.from_numpy(tail).to(device),
+        bounds=torch.from_numpy(bounds).to(device),
+        low_pos=lay.digit_pos[d - k :],
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,d,k", [("cmu440", 10, 6), ("s" * 61, 4, 3),
+                                      ("x" * 50, 10, 5)])
+@pytest.mark.parametrize("sieve", [False, True])
+def test_kernel_matches_plain_on_card(cuda_device, data, d, k, sieve):
+    ops = _operands(data, d, k, 4, seed=d + k, device=cuda_device)
+    full = minhash_plain(**ops).tolist()
+    assert full[2] != I32_MAX
+    ths = [U32_MAX, full[0], full[0] - 1] if sieve else [None]
+    for th in ths:
+        got = minhash(**ops, thresh=th)
+        torch.cuda.synchronize()
+        assert got.tolist() == minhash_plain(**ops, thresh=th).tolist(), th
+
+
+@pytest.mark.gpu
+def test_kernel_padding_only_dispatch(cuda_device):
+    ops = _operands("cmu440", 10, 6, 2, seed=0, device=cuda_device)
+    ops["bounds"].zero_()
+    assert minhash(**ops).tolist() == [U32_MAX, U32_MAX, I32_MAX]
+
+
+@pytest.mark.gpu
+def test_sweep_cuda_matches_oracle(cuda_device):
+    n0 = minhash.launches
+    r = sweep.sweep_min_hash("cmu440", 999_990, 1_000_020, device=cuda_device)
+    assert (r.hash, r.nonce) == min_hash_range("cmu440", 999_990, 1_000_020)
+    assert minhash.launches > n0
