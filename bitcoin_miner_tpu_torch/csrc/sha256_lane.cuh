@@ -1,6 +1,7 @@
 // Per-lane SHA-256 of the min-hash sweep: message assembly from the
 // row's word template plus the lane's k low decimal digits, and the
-// compression rounds.
+// compression rounds, whole or split at round p (compress_prefix once per
+// group, compress_from per lane) for the factored kernel.
 #pragma once
 
 #include <stdint.h>
@@ -37,6 +38,39 @@ __constant__ uint32_t kK[64] = {
 
 BMT_FN uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
 
+// One round: t1 = h + Σ1(e) + ch(e, f, g) + k + wt, t2 = Σ0(a) + maj(a, b, c),
+// then the state shifts by one word.  Inlined, the shift is register
+// renaming.
+BMT_FN void round_step(uint32_t& a, uint32_t& b, uint32_t& c, uint32_t& d,
+                       uint32_t& e, uint32_t& f, uint32_t& g, uint32_t& h,
+                       uint32_t k, uint32_t wt) {
+  const uint32_t s1e = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+  const uint32_t ch = g ^ (e & (f ^ g));
+  const uint32_t t1 = h + s1e + ch + k + wt;
+  const uint32_t s0a = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+  const uint32_t maj = (a & b) | (c & (a | b));
+  const uint32_t t2 = s0a + maj;
+  h = g;
+  g = f;
+  f = e;
+  e = d + t1;
+  d = c;
+  c = b;
+  b = a;
+  a = t1 + t2;
+}
+
+// Message schedule word t >= 16, written back into the rotating buffer w.
+BMT_FN uint32_t schedule(uint32_t w[16], int t) {
+  const uint32_t w15 = w[(t - 15) & 15];
+  const uint32_t w2 = w[(t - 2) & 15];
+  const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+  const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+  const uint32_t wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
+  w[t & 15] = wt;
+  return wt;
+}
+
 // One compression of the 16-word block w (overwritten by the message
 // schedule).  out[i] = state[i] + round output i.  Callers that read only
 // out[0..1] let the compiler drop the work feeding the other six words.
@@ -45,31 +79,78 @@ BMT_FN void compress(const uint32_t st[8], uint32_t w[16], uint32_t out[8]) {
   uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
   for (int t = 0; t < 64; ++t) {
-    uint32_t wt;
-    if (t < 16) {
-      wt = w[t];
-    } else {
-      const uint32_t w15 = w[(t - 15) & 15];
-      const uint32_t w2 = w[(t - 2) & 15];
-      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
-      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
-      w[t & 15] = wt;
-    }
-    const uint32_t s1e = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
-    const uint32_t ch = g ^ (e & (f ^ g));
-    const uint32_t t1 = h + s1e + ch + kK[t] + wt;
-    const uint32_t s0a = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
-    const uint32_t maj = (a & b) | (c & (a | b));
-    const uint32_t t2 = s0a + maj;
-    h = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = b;
-    b = a;
-    a = t1 + t2;
+    const uint32_t wt = t < 16 ? w[t] : schedule(w, t);
+    round_step(a, b, c, d, e, f, g, h, kK[t], wt);
+  }
+  out[0] = st[0] + a;
+  out[1] = st[1] + b;
+  out[2] = st[2] + c;
+  out[3] = st[3] + d;
+  out[4] = st[4] + e;
+  out[5] = st[5] + f;
+  out[6] = st[6] + g;
+  out[7] = st[7] + h;
+}
+
+// Rounds [0, p) of a compression from state st, 0 <= p <= 16 (they read
+// only w[0..p-1]): the carried state mid that compress_from resumes.  The
+// factored kernel runs it once per (row, outer group), not per lane.
+BMT_FN void compress_prefix(const uint32_t st[8], const uint32_t w[16], int p,
+                            uint32_t mid[8]) {
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    if (t < p) round_step(a, b, c, d, e, f, g, h, kK[t], w[t]);
+  }
+  mid[0] = a;
+  mid[1] = b;
+  mid[2] = c;
+  mid[3] = d;
+  mid[4] = e;
+  mid[5] = f;
+  mid[6] = g;
+  mid[7] = h;
+}
+
+// Rounds [p, 64) from the carried state mid (compress_prefix's output for
+// the same p), then the feed-forward onto the block's initial state st:
+// compress_from(st, compress_prefix(st, w, p), p, w) == compress(st, w).
+// w holds all 16 words (the schedule reads the early ones) and is
+// overwritten.  The switch enters the unrolled rounds at round p; each
+// case falls through to the next, so past the entry the rounds are the
+// same straight-line code as compress's.
+BMT_FN void compress_from(const uint32_t st[8], const uint32_t mid[8], int p,
+                          uint32_t w[16], uint32_t out[8]) {
+  uint32_t a = mid[0], b = mid[1], c = mid[2], d = mid[3];
+  uint32_t e = mid[4], f = mid[5], g = mid[6], h = mid[7];
+#define BMT_ROUND_CASE(t) \
+  case t:                 \
+    round_step(a, b, c, d, e, f, g, h, kK[t], w[t]);
+  switch (p) {
+    BMT_ROUND_CASE(0)
+    BMT_ROUND_CASE(1)
+    BMT_ROUND_CASE(2)
+    BMT_ROUND_CASE(3)
+    BMT_ROUND_CASE(4)
+    BMT_ROUND_CASE(5)
+    BMT_ROUND_CASE(6)
+    BMT_ROUND_CASE(7)
+    BMT_ROUND_CASE(8)
+    BMT_ROUND_CASE(9)
+    BMT_ROUND_CASE(10)
+    BMT_ROUND_CASE(11)
+    BMT_ROUND_CASE(12)
+    BMT_ROUND_CASE(13)
+    BMT_ROUND_CASE(14)
+    BMT_ROUND_CASE(15)
+    default:
+      break;
+  }
+#undef BMT_ROUND_CASE
+#pragma unroll
+  for (int t = 16; t < 64; ++t) {
+    round_step(a, b, c, d, e, f, g, h, kK[t], schedule(w, t));
   }
   out[0] = st[0] + a;
   out[1] = st[1] + b;

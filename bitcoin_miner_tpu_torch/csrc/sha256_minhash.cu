@@ -42,64 +42,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "minhash_fold.cuh"
 #include "sha256_lane.cuh"
 
 namespace {
 
+using bmt::Best;
+using bmt::kI32Max;
+using bmt::kKeyMax;
+
 constexpr int kThreads = 256;
 constexpr int kLanesPerThread = 16;
 constexpr int kLanesPerBlock = kThreads * kLanesPerThread;
-constexpr int kFinalThreads = 1024;
-constexpr uint32_t kI32Max = 0x7FFFFFFFu;
-constexpr unsigned long long kKeyMax = ~0ull;
-
-struct Best {
-  unsigned long long key;  // (h0 << 32) | h1
-  uint32_t idx;
-};
-
-__device__ __forceinline__ bool better(unsigned long long k0, uint32_t i0,
-                                       unsigned long long k1, uint32_t i1) {
-  return k0 < k1 || (k0 == k1 && i0 < i1);
-}
-
-// Block-wide lexicographic min of every thread's (key, idx); the result is
-// valid in thread 0.
-__device__ __forceinline__ Best block_min(Best b) {
-  __shared__ unsigned long long s_key[32];
-  __shared__ uint32_t s_idx[32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long ok = __shfl_down_sync(0xffffffffu, b.key, off);
-    const uint32_t oi = __shfl_down_sync(0xffffffffu, b.idx, off);
-    if (better(ok, oi, b.key, b.idx)) {
-      b.key = ok;
-      b.idx = oi;
-    }
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_key[warp] = b.key;
-    s_idx[warp] = b.idx;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-    b.key = lane < n_warps ? s_key[lane] : kKeyMax;
-    b.idx = lane < n_warps ? s_idx[lane] : kI32Max;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long ok = __shfl_down_sync(0xffffffffu, b.key, off);
-      const uint32_t oi = __shfl_down_sync(0xffffffffu, b.idx, off);
-      if (better(ok, oi, b.key, b.idx)) {
-        b.key = ok;
-        b.idx = oi;
-      }
-    }
-  }
-  return b;
-}
 
 // grid (ceil(10^k / kLanesPerBlock), B): block (x, row) hashes lanes
 // [x * kLanesPerBlock, (x + 1) * kLanesPerBlock) of chunk row `row` and
@@ -143,43 +97,10 @@ __global__ void __launch_bounds__(kThreads)
     bmt::lane_hash<NB>(mid, tmpl, da, uint32_t(i), h0, h1);
     // Sieve: ties on h0 survive, so a lane equal on h0 but lower on
     // (h1, index) is never lost.
-    if (!SIEVE || h0 <= th) {
-      const unsigned long long key =
-          (static_cast<unsigned long long>(h0) << 32) | h1;
-      const uint32_t idx = row_base + uint32_t(i);
-      if (better(key, idx, b.key, b.idx)) {
-        b.key = key;
-        b.idx = idx;
-      }
-    }
+    if (!SIEVE || h0 <= th) bmt::fold(b, h0, h1, row_base + uint32_t(i));
   }
-  b = block_min(b);
-  if (threadIdx.x == 0) {
-    partials[2 * part] = b.key;
-    partials[2 * part + 1] = b.idx;
-    if (SIEVE && b.key != kKeyMax) atomicMin(th_word, unsigned(b.key >> 32));
-  }
-}
-
-// One block: reduce n partials to out = (h0, h1, flat_idx).
-__global__ void __launch_bounds__(kFinalThreads)
-    finalize_kernel(const unsigned long long* __restrict__ partials, int n,
-                    long long* __restrict__ out) {
-  Best b{kKeyMax, kI32Max};
-  for (int i = threadIdx.x; i < n; i += kFinalThreads) {
-    const unsigned long long key = partials[2 * i];
-    const uint32_t idx = uint32_t(partials[2 * i + 1]);
-    if (better(key, idx, b.key, b.idx)) {
-      b.key = key;
-      b.idx = idx;
-    }
-  }
-  b = block_min(b);
-  if (threadIdx.x == 0) {
-    out[0] = static_cast<long long>(b.key >> 32);
-    out[1] = static_cast<long long>(b.key & 0xFFFFFFFFull);
-    out[2] = static_cast<long long>(b.idx);
-  }
+  b = bmt::block_min(b);
+  if (threadIdx.x == 0) bmt::write_partial(b, SIEVE, th_word, partials, part);
 }
 
 template <int NB, bool SIEVE>
@@ -248,7 +169,7 @@ int bmt_sha256_minhash(const uint32_t* midstate, const uint32_t* tail,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  finalize_kernel<<<1, kFinalThreads, 0, s>>>(partials, int(grid.x * grid.y), out);
+  bmt::finalize_kernel<<<1, bmt::kFinalThreads, 0, s>>>(partials, int(grid.x * grid.y), out);
   return int(cudaGetLastError());
 }
 

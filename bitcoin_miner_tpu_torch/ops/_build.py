@@ -2,10 +2,10 @@
 
 ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` into
 ``build/lib<name>.so`` beside the package (the directory is listed in
-``.gitignore``): no PyTorch headers, so a build takes seconds.  Builds run
-under one lock, because the sweep pipeline's dispatcher thread and a direct
-caller can reach the kernel at once.  A missing ``nvcc`` or a failed build
-raises.
+``.gitignore``): no PyTorch headers, so a build takes seconds.  Each source
+builds under its own lock, because the sweep pipeline's dispatcher thread
+and a direct caller can reach a kernel at once; two sources build in
+parallel.  A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: "dict[str, threading.Lock]" = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -45,14 +46,16 @@ def nvcc_path() -> str:
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so`` unless a
     library newer than every file in ``csrc/`` is there.  ``verbose``
-    always compiles, with ``-Xptxas -v``, and prints nvcc's output
-    (registers, shared memory and spills per kernel).  Returns the library
-    path."""
+    always compiles, with ``-Xptxas -v``, prints nvcc's output (registers,
+    shared memory and spills per kernel) and writes it beside the library
+    as ``lib<name>.log``.  Returns the library path."""
     src = CSRC_DIR / f"{name}.cu"
     if not src.exists():
         raise KernelBuildError(f"no kernel source {src}")
     out = BUILD_DIR / f"lib{name}.so"
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         newest = max(p.stat().st_mtime for p in CSRC_DIR.iterdir())
         if out.exists() and out.stat().st_mtime >= newest and not verbose:
             return out
@@ -66,7 +69,10 @@ def build(name: str, verbose: bool = False) -> Path:
             cmd[1:1] = ["-Xptxas", "-v"]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if verbose or proc.returncode != 0:
-            print(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}", flush=True)
+            text = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            print(text, flush=True)
+            if verbose:
+                out.with_suffix(".log").write_text(text)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise KernelBuildError(

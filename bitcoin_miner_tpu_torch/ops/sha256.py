@@ -8,9 +8,13 @@ the nonce's decimal digit count.  This module provides:
   fold the constant message prefix (job data + space) into a *midstate*;
 - the **message layout** (``build_layout``): for job ``data`` and digit
   count ``d`` the padded tail-block word template and the (word, shift)
-  position of every nonce digit byte;
+  position of every nonce digit byte; and the factored kernel's split of
+  the low digits into outer groups and inner lanes (``factor_low_pos``,
+  ``outer_patch_table``);
 - a **torch compression** over int64 tensors holding 32-bit values, used
-  by the plain version of the min-hash kernel (ops/sha256_minhash.py).
+  by the plain versions of the min-hash kernels (ops/sha256_minhash.py,
+  ops/sha256_minhash_factored.py), with the factored kernel's resumable
+  entry points (``stop_round=``, ``group_state=``).
   torch has no uint32 arithmetic on the CPU, so every sum is masked back to
   32 bits; a rotation ``(x >> n) | (x << (32 - n))`` of a value below 2^32
   stays below 2^63 and cannot overflow.
@@ -22,6 +26,7 @@ lexicographically.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -60,7 +65,13 @@ def _rotr(x, n: int):
     return ((x >> n) | (x << (32 - n))) & _M32
 
 
-def compress(state: Sequence, w: Sequence, final_only: "bool | str" = False) -> Tuple:
+def compress(
+    state: Sequence,
+    w: Sequence,
+    final_only: "bool | str" = False,
+    stop_round: "int | None" = None,
+    group_state: "Tuple | None" = None,
+) -> Tuple:
     """One SHA-256 compression of a 16-word block.
 
     ``state``: 8 values, ``w``: 16 values; each an int64 tensor of 32-bit
@@ -70,10 +81,28 @@ def compress(state: Sequence, w: Sequence, final_only: "bool | str" = False) -> 
     ``final_only=True`` (a message's LAST block when only the first 8
     digest bytes matter — the mining contract reads exactly ``(h0, h1)``)
     returns just ``(out_a, out_b)``; ``final_only="h0"`` returns ``(out_a,)``.
+
+    ``stop_round=p`` and ``group_state=`` are the factored kernel's entry
+    points.  ``stop_round=p`` (0 <= p <= 16) runs rounds ``[0, p)``, which
+    read only ``w[:p]``, and returns the carried state ``(p, (a..h))``.
+    ``group_state=`` resumes from such a carried state: rounds ``[p, 64)``
+    run, and ``state`` stays the block's initial state for the
+    feed-forward.  ``compress(s, w, group_state=compress(s, w,
+    stop_round=p))`` equals ``compress(s, w)`` for every p.
     """
-    a, b, c, d, e, f, g, h = state
+    if group_state is None:
+        start = 0
+        a, b, c, d, e, f, g, h = state
+    else:
+        start, (a, b, c, d, e, f, g, h) = group_state
+    if stop_round is not None and not start <= stop_round <= 16:
+        # Past round 16 the schedule buffer has been overwritten, so the
+        # carried state would no longer be (round, 8 words).
+        raise ValueError(f"stop_round must be in [{start}, 16], got {stop_round}")
     w = list(w)
-    for t in range(64):
+    for t in range(start, 64):
+        if t == stop_round:
+            return (t, (a, b, c, d, e, f, g, h))
         if t < 16:
             wt = w[t]
         else:
@@ -164,6 +193,72 @@ class MsgLayout:
     @property
     def n_tail_blocks(self) -> int:
         return len(self.tail_template) // 16
+
+    def factor(self, k: int, k_in: int) -> "FactorSplit":
+        """Outer/inner split of this layout's ``k`` low digits (see
+        :func:`factor_low_pos`)."""
+        if k > self.digit_count:
+            raise ValueError(f"k ({k}) exceeds digit_count ({self.digit_count})")
+        return factor_low_pos(self.digit_pos[self.digit_count - k :], k_in)
+
+
+@dataclass(frozen=True)
+class FactorSplit:
+    """Outer/inner factoring of the ``k`` low digits of a dispatch.
+
+    A chunk's ``10^k`` lanes factor as ``10^k_out`` outer groups of
+    ``10^k_in`` inner lanes.  The outer digits (``outer_pos``) are the same
+    for every lane of a group and are patched into the row's template once
+    per group (:func:`outer_patch_table`); only the inner digits
+    (``inner_pos``) vary per lane.  Every round before ``first_inner_word``
+    reads group-constant words only, so the factored kernel computes that
+    round prefix once per (row, group) and resumes it per lane
+    (``compress``'s ``stop_round=`` / ``group_state=``).
+    """
+
+    k_out: int
+    k_in: int
+    outer_pos: Tuple[DigitPos, ...]  # high k_out of the k low digits
+    inner_pos: Tuple[DigitPos, ...]  # low k_in digits (vary per lane)
+    first_inner_word: int  # flat tail-word index of the first inner digit
+
+
+def factor_low_pos(low_pos: Tuple[DigitPos, ...], k_in: int) -> FactorSplit:
+    """Split the ``k`` low digit positions into outer and inner groups;
+    ``1 <= k_in < k`` (with no outer digit there is nothing to factor)."""
+    k = len(low_pos)
+    if not 1 <= k_in < k:
+        raise ValueError(f"k_in must be in [1, {k - 1}], got {k_in}")
+    outer_pos = tuple(low_pos[: k - k_in])
+    inner_pos = tuple(low_pos[k - k_in :])
+    return FactorSplit(
+        k_out=k - k_in,
+        k_in=k_in,
+        outer_pos=outer_pos,
+        inner_pos=inner_pos,
+        first_inner_word=min(dp.word for dp in inner_pos),
+    )
+
+
+@lru_cache(maxsize=64)
+def outer_patch_table(
+    outer_pos: Tuple[DigitPos, ...],
+) -> Tuple[Tuple[int, ...], np.ndarray]:
+    """``(words, table)``: the tail-word indices the outer digits touch
+    (ascending) and a read-only ``(10^k_out, len(words))`` uint32 table
+    whose row ``g`` holds the masks that OR outer group ``g``'s ASCII
+    digits into those words."""
+    k_out = len(outer_pos)
+    words = tuple(sorted({dp.word for dp in outer_pos}))
+    widx = {w: m for m, w in enumerate(words)}
+    g = np.arange(10**k_out, dtype=np.int64)
+    table = np.zeros((10**k_out, len(words)), dtype=np.uint32)
+    for j, dp in enumerate(outer_pos):
+        p = 10 ** (k_out - 1 - j)
+        dig = ((g // p) % 10 + 48).astype(np.uint32) << np.uint32(dp.shift)
+        table[:, widx[dp.word]] |= dig
+    table.setflags(write=False)
+    return words, table
 
 
 def build_layout(data: bytes, digit_count: int) -> MsgLayout:

@@ -139,6 +139,29 @@ def sieved(best: Sequence[int], thresh: Optional[int]) -> Tuple[int, int, int]:
     return tuple(int(v) for v in best)
 
 
+def _launch_args(midstate, tail, bounds, low_pos, thresh):
+    """What a kernel launch takes beyond the checked operands: raises on
+    non-contiguous operands or a threshold outside uint32, and returns the
+    digit (word, shift) ctypes arrays and the sieve's device word (None
+    without a threshold)."""
+    for t in (midstate, tail, bounds):
+        if not t.is_contiguous():
+            raise ValueError("min-hash operands must be contiguous")
+    if thresh is not None and not 0 <= thresh <= U32_MAX:
+        raise ValueError(f"threshold {thresh} is not a uint32")
+    pos = _pairs(low_pos)
+    words = (ctypes.c_int * len(pos))(*(w for w, _ in pos))
+    shifts = (ctypes.c_int * len(pos))(*(s for _, s in pos))
+    th_word = None
+    if thresh is not None:
+        # The sieve's device word, int32 bits of the uint32 threshold.
+        th_word = torch.full(
+            (1,), thresh - (1 << 32) if thresh > I32_MAX else thresh,
+            dtype=torch.int32, device=midstate.device,
+        )
+    return words, shifts, th_word
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bmt_sha256_minhash.argtypes = [p, p, p, i, i, i, p, p, i, p, p, p, p]
@@ -171,27 +194,13 @@ def minhash(
     if midstate.device.type != "cuda":
         raise ValueError(f"no min-hash kernel for device {midstate.device}")
     batch, n_tb, k = _check_operands(midstate, tail, bounds, low_pos)
-    for t in (midstate, tail, bounds):
-        if not t.is_contiguous():
-            raise ValueError("min-hash operands must be contiguous")
-    if thresh is not None and not 0 <= thresh <= U32_MAX:
-        raise ValueError(f"threshold {thresh} is not a uint32")
+    words, shifts, th_word = _launch_args(midstate, tail, bounds, low_pos, thresh)
     lib = _lib()
     dev = midstate.device
-    pos = _pairs(low_pos)
-    words = (ctypes.c_int * k)(*(w for w, _ in pos))
-    shifts = (ctypes.c_int * k)(*(s for _, s in pos))
     partials = torch.empty(
         2 * lib.bmt_sha256_minhash_partials(batch, k), dtype=torch.int64, device=dev
     )
     out = torch.empty(3, dtype=torch.int64, device=dev)
-    th_word = None
-    if thresh is not None:
-        # The sieve's device word, int32 bits of the uint32 threshold.
-        th_word = torch.full(
-            (1,), thresh - (1 << 32) if thresh > I32_MAX else thresh,
-            dtype=torch.int32, device=dev,
-        )
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.bmt_sha256_minhash(
         midstate.data_ptr(), tail.data_ptr(), bounds.data_ptr(), batch, n_tb, k,

@@ -11,10 +11,13 @@ device.  Decomposition invariants (unchanged from the reference):
   the lexicographic min of the big-endian ``(h0, h1)`` hash pair and the
   flat argmin lane, lowest-nonce tie-break.
 
-Rungs: ``cuda`` runs the hand-written kernel (ops/sha256_minhash.py) on a
-CUDA device; ``torch`` runs its plain PyTorch version on the given device
-(the CPU rung of the tests).  Not ported yet: the mesh, hot-plane and
-factored rungs and the native C++ host tier.
+Rungs: ``cuda`` runs the hand-written kernels (ops/sha256_minhash.py and,
+with ``factored=True``, ops/sha256_minhash_factored.py) on a CUDA device;
+``torch`` runs their plain PyTorch versions on the given device (the CPU
+rung of the tests).  The factored rung splits a chunk's ``10^k`` lanes into
+``10^(k - k_in)`` outer digit groups of ``10^k_in`` inner lanes and
+computes each (row, group)'s round prefix once (``default_factor_k_in``).
+Not ported yet: the mesh and hot-plane rungs and the native C++ host tier.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from ..utils.platform import resolve_device
 from .sha256 import MsgLayout, build_layout
 from .sha256_minhash import minhash, minhash_plain
+from .sha256_minhash_factored import minhash_factored, minhash_factored_plain
 
 U32_MAX = 0xFFFFFFFF
 I32_MAX = 0x7FFFFFFF
@@ -125,6 +129,13 @@ def _fill_templates(
 # --------------------------------------------------------------------------
 
 
+def default_factor_k_in(k: int) -> int:
+    """The factored kernel's inner digit count for a ``k``-digit lane
+    axis: at most 1000 outer groups, the inner lanes as wide as that
+    allows.  k = 6 -> 3 (1000 groups x 1000 lanes), k = 5 -> 3, k = 2 -> 1."""
+    return min(3, max(1, k - 2))
+
+
 @dataclass
 class SweepResult:
     hash: int  # the 64-bit big-endian hash value
@@ -138,15 +149,24 @@ def auto_tune(
     max_k: Optional[int],
     sieve: Optional[bool],
     device: torch.device,
-) -> Tuple[str, int, int, bool]:
-    """Resolve ``(backend, rows-per-dispatch, max_k, sieve)`` for a device.
+    factored: Optional[bool] = None,
+) -> Tuple[str, int, int, bool, bool]:
+    """Resolve ``(backend, rows-per-dispatch, max_k, sieve, factored)`` for
+    a device.
 
     ``backend=None`` is ``cuda`` on a CUDA device and ``torch`` elsewhere.
     The ``cuda`` defaults (batch 1024, max_k 6: ~1e9 lanes per dispatch,
     sieve on) are the TPU tier's shape, kept provisionally until an H100
     measurement prices them.  The ``torch`` rung keeps the reference xla
     tier's small defaults (batch 4, max_k 5, sieve off) so a CPU sweep stays
-    small.  ``batch * 10^max_k`` must fit the kernel's int32 flat index."""
+    small.  ``batch * 10^max_k`` must fit the kernel's int32 flat index.
+
+    ``factored=None`` is OFF on both rungs.  On ``cuda`` as on the
+    reference's accelerator tier: the main path keeps its kernel until a
+    benchmark's repeated pairs decide (PERF.md has single pairs only).  On
+    ``torch`` because that rung is the tests' CPU rung, not a speed tier
+    (the reference's xla tier defaults it ON for its own schedule-buffer
+    reason, which the plain version does not have)."""
     if backend is None:
         backend = "cuda" if device.type == "cuda" else "torch"
     if backend not in ("cuda", "torch"):
@@ -159,6 +179,7 @@ def auto_tune(
         max_k = 6 if backend == "cuda" else 5
     if sieve is None:
         sieve = backend == "cuda"
+    factored = bool(factored)
     if batch < 1 or max_k < 1:
         raise ValueError(f"batch ({batch}) and max_k ({max_k}) must be >= 1")
     if batch * 10**max_k > I32_MAX:
@@ -166,7 +187,7 @@ def auto_tune(
             f"batch ({batch}) * 10^max_k ({10**max_k}) lanes overflow the "
             "int32 argmin index; lower batch or max_k"
         )
-    return backend, batch, max_k, sieve
+    return backend, batch, max_k, sieve, factored
 
 
 @dataclass(frozen=True)
@@ -245,12 +266,20 @@ def run_sweep_dispatches(
     return lanes
 
 
-def _build_kernel(backend: str, layout: MsgLayout, group: ChunkGroup):
+def _build_kernel(backend: str, layout: MsgLayout, group: ChunkGroup,
+                  factored: bool = False):
     """The kernel for one digit class: the CUDA wrapper or the plain
-    version, bound to the class's k low digit positions.  One binary serves
-    every class, so nothing is compiled per class."""
+    version, bound to the class's k low digit positions.  ``factored``
+    takes the factored kernel for classes with ``k >= 2`` (a 1-digit lane
+    axis has nothing to factor).  One binary serves every class, so
+    nothing is compiled per class."""
     low_pos = layout.digit_pos[layout.digit_count - group.k :]
-    fn = minhash if backend == "cuda" else minhash_plain
+    cuda = backend == "cuda"
+    if factored and group.k >= 2:
+        fn = minhash_factored if cuda else minhash_factored_plain
+        return functools.partial(fn, low_pos=low_pos,
+                                 k_in=default_factor_k_in(group.k))
+    fn = minhash if cuda else minhash_plain
     return functools.partial(fn, low_pos=low_pos)
 
 
@@ -328,6 +357,7 @@ class SweepPipeline:
         max_inflight: int = 32,
         host_lane_budget: Optional[int] = None,
         sieve: Optional[bool] = None,
+        factored: Optional[bool] = None,
     ) -> None:
         import queue as _queue
         import threading
@@ -335,8 +365,9 @@ class SweepPipeline:
 
         self._Future = Future
         self._device = resolve_device(device)
-        self._backend, self._batch, self._max_k, self._sieve = auto_tune(
-            backend, batch, max_k, sieve, self._device
+        (self._backend, self._batch, self._max_k, self._sieve,
+         self._factored) = auto_tune(
+            backend, batch, max_k, sieve, self._device, factored
         )
         self._host_lane_budget = (
             auto_host_lane_budget() if host_lane_budget is None
@@ -392,7 +423,7 @@ class SweepPipeline:
             pass  # already resolved by the other thread
 
     def _get_kernel(self, layout, group):
-        return _build_kernel(self._backend, layout, group)
+        return _build_kernel(self._backend, layout, group, self._factored)
 
     def _dispatch_loop(self) -> None:
         import contextlib
@@ -518,21 +549,23 @@ def sweep_min_hash(
     device=None,
     host_lane_budget: int = 0,
     sieve: Optional[bool] = None,
+    factored: Optional[bool] = None,
 ) -> SweepResult:
     """Find ``(min Hash(data, n), argmin n)`` over inclusive ``[lower,
     upper]``.  Bit-exact vs the hashlib oracle
     (``bitcoin_miner_tpu_torch.bitcoin.hash_nonce``); ties -> lowest nonce.
 
     ``device``: None is the CUDA card (raises without one); ``"cpu"`` runs
-    the plain version.  ``backend``/``batch``/``max_k``/``sieve``: see
-    :func:`auto_tune`.
+    the plain version.  ``backend``/``batch``/``max_k``/``sieve``/
+    ``factored``: see :func:`auto_tune`.
     """
     dev = resolve_device(device)
-    backend, batch, max_k, sieve = auto_tune(backend, batch, max_k, sieve, dev)
+    backend, batch, max_k, sieve, factored = auto_tune(
+        backend, batch, max_k, sieve, dev, factored)
     best: List[Tuple[int, int]] = []  # [(hash, nonce)] — current minimum
 
     def get_kernel(layout, group):
-        return _build_kernel(backend, layout, group)
+        return _build_kernel(backend, layout, group, factored)
 
     def run_kernel(kern, midstate, tail_const, bounds):
         th = None

@@ -9,21 +9,35 @@ Phases (any failure ends the run non-zero, with no result line):
 
 1. environment — the card's name and power limit (nvidia-smi) and
    torch.cuda.get_device_name(0);
-2. build — the kernel source in bitcoin_miner_tpu_torch/csrc with nvcc for
-   sm_90a, printing ``-Xptxas -v`` and the static SASS mix per kernel;
+2. build — both kernel sources in bitcoin_miner_tpu_torch/csrc, one nvcc
+   each, started together, for sm_90a, printing ``-Xptxas -v`` (registers,
+   spills) and the static SASS mix per kernel;
 3. kernel vs plain — the min-hash kernel against its plain PyTorch version
    on the card, bit-exact, over both sieve forms, 1 and 2 tail blocks, k 5
    and 6, partial-bound and padding rows and three thresholds; then at the
    main path's own shape (1024 rows x 10^6 lanes, 1 and 2 tail blocks) and
    a 500-row partial batch;
-4. main path — the port miner's ``main`` (``--backend cuda``) in a thread,
+4. factored kernel vs plain — the factored kernel against its plain
+   version, bit-exact, both forms, k 2..6 with the default k_in and one
+   other, three layouts (inner digits in the one tail block; straddling
+   into the second; all in the second), partial bounds, a padding row and
+   the thresholds; then at the main path's shape against phase 3's plain
+   folds, and for the 56-character message against its own plain run;
+5. main path — the port miner's ``main`` (``--backend cuda``) in a thread,
    served by this script through the port's own LSP server with Requests of
    at most 1e9 nonces; every Result is checked against hashlib, the job's
    fold against a 5e8-nonce split, a Request across 1e9 against the
    ``min_hash_range`` oracle, and the kernel's launch count;
-5. numbers — kernel ms per full dispatch (CUDA events, each timed output
-   held to the plain version), the plain version's ms at that shape and the
-   bound, nonces/s per Request, each beside the card.
+6. factored path — ``SweepPipeline(backend="cuda", factored=True)`` over the
+   same jobs plus the 56-character one in 1e9-nonce submits: every result
+   checked against hashlib, every job's fold against the unfactored one,
+   the Request across 1e9 against the oracle, and the factored kernel's
+   launch count;
+7. numbers — ms per full dispatch of both kernels on the same dispatches
+   (CUDA events, in turns, each timed output held to the plain version),
+   the plain versions' ms at that shape and the bound, nonces/s per 1e9
+   Request on both rungs as an interleaved same-seed pair, each beside the
+   card.
 
 Prints the kernels' JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Imports nothing of JAX.
@@ -45,8 +59,15 @@ U32_MAX = 0xFFFFFFFF
 I32_MAX = 0x7FFFFFFF
 REPLACES = "bitcoin_miner_tpu/ops/pallas_sha256.py:93"
 SOURCE = "bitcoin_miner_tpu_torch/csrc/sha256_minhash.cu"
+F_REPLACES = "bitcoin_miner_tpu/ops/pallas_sha256.py:536"
+F_SOURCE = "bitcoin_miner_tpu_torch/csrc/sha256_minhash_factored.cu"
 TWO_BLOCK_DATA = "The quick brown fox jumps over the lazy dog again!"  # 50 chars
+# At d = 10, k = 6, k_in = 3: the inner digits straddle tail blocks 1 and 2
+# (54 chars), or all lie in block 2, so block 1 is per-group work (56 chars).
+STRADDLE_DATA = "How vexingly quick daft zebras jump, said the old man."
+FIB1_DATA = "Pack my box with five dozen liquor jugs, then ship it!!!"
 MAIN_B, MAIN_K = 1024, 6  # the cuda rung's batch and max_k (ops/sweep.py auto_tune)
+MAIN_K_IN = 3  # default_factor_k_in(MAIN_K)
 
 
 def log(*a) -> None:
@@ -57,6 +78,37 @@ def smi(query: str) -> str:
     from bitcoin_miner_tpu_torch.utils.platform import nvidia_smi
 
     return nvidia_smi(query) or ""
+
+
+def kernel_label(mangled: str):
+    """``minhash_kernel<NB, sieve>`` / ``factored_kernel<NB, FIB, sieve>``
+    for a mangled kernel name, else None."""
+    t = re.search(r"(minhash_kernel|factored_kernel)ILi(\d)E(?:Li(\d)E)?Lb([01])E", mangled)
+    if not t:
+        return None
+    args = [t.group(2)] + ([t.group(3)] if t.group(3) else [])
+    return f"{t.group(1)}<{', '.join(args)}, {'true' if t.group(4) == '1' else 'false'}>"
+
+
+def ptxas_stats(log: str) -> dict:
+    """Registers and spill bytes of each kernel instance, from nvcc's
+    ``-Xptxas -v`` output."""
+    stats, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            label = kernel_label(m.group(1))
+            cur = stats.setdefault(label, {}) if label else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return stats
 
 
 def sass_mix(lib_path, nvcc: str) -> dict:
@@ -73,12 +125,11 @@ def sass_mix(lib_path, nvcc: str) -> dict:
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            t = re.search(r"minhash_kernelILi(\d)ELb([01])E", m.group(1))
+            label = kernel_label(m.group(1))
             cur = None
-            if t:
+            if label:
                 cur = mixes.setdefault(
-                    f"minhash_kernel<{t.group(1)}, {'true' if t.group(2) == '1' else 'false'}>",
-                    {"SHF": 0, "LOP3": 0, "IADD3": 0, "IMAD": 0, "other": 0, "total": 0})
+                    label, {"SHF": 0, "LOP3": 0, "IADD3": 0, "IMAD": 0, "other": 0, "total": 0})
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if cur is not None and m:
@@ -95,7 +146,12 @@ class Smoke:
         self.card = ""
         self.failures = []
         self.k_stats = {}
+        self.f_stats = {}  # the factored kernel's
         self.main_ops = {}  # n_tb -> (operands, plain result, plain ms) of a full dispatch
+        # message -> (n_tb, operands, plain result, plain ms or None) of a
+        # full dispatch that both kernels are timed on
+        self.full_disp = {}
+        self.folds = {}  # job data -> the unfactored main path's fold
 
     # ------------------------------------------------------------ helpers
 
@@ -120,11 +176,11 @@ class Smoke:
             low_pos=lay.digit_pos[d - k:],
         ), chunks, lay
 
-    def time_kernel(self, fn, reps: int = 10):
+    def time_kernel(self, fn, reps: int = 10, warm: int = 2):
         """(ms per call by CUDA events, the last call's output as a list)."""
         torch = self.torch
-        fn()
-        fn()
+        for _ in range(warm):
+            fn()
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -152,11 +208,30 @@ class Smoke:
         from bitcoin_miner_tpu_torch.ops import _build
 
         t0 = time.monotonic()
-        path = _build.build("sha256_minhash", verbose=True)
-        log(f"built {os.path.relpath(path, ROOT)} in {time.monotonic() - t0:.1f} s")
-        self.k_stats["sass"] = sass_mix(path, _build.nvcc_path())
-        for name, mix in self.k_stats["sass"].items():
-            log(f"  static SASS of {name}: {mix}")
+        paths, errors = {}, []
+
+        def one(name):
+            try:
+                paths[name] = _build.build(name, verbose=True)
+            except Exception as e:  # re-raised below, after both joined
+                errors.append(e)
+
+        threads = [threading.Thread(target=one, args=(n,))
+                   for n in ("sha256_minhash", "sha256_minhash_factored")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        log(f"built {sorted(os.path.relpath(p, ROOT) for p in paths.values())} "
+            f"in {time.monotonic() - t0:.1f} s (in parallel)")
+        for name, stats in (("sha256_minhash", self.k_stats),
+                            ("sha256_minhash_factored", self.f_stats)):
+            stats["sass"] = sass_mix(paths[name], _build.nvcc_path())
+            stats["ptxas"] = ptxas_stats(paths[name].with_suffix(".log").read_text())
+            for kern, mix in stats["sass"].items():
+                log(f"  static SASS of {kern}: {mix}; ptxas {stats['ptxas'].get(kern)}")
 
     def phase_compare(self) -> None:
         from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
@@ -238,8 +313,93 @@ class Smoke:
                 f"n_tb={ntb} [{self.card}]")
             if n_valid == MAIN_B:
                 self.main_ops[ntb] = (ops, ref, plain_ms)
+                self.full_disp[data] = (ntb, ops, ref, None)
         self.k_stats["max_abs_err"] = max_err
         log(f"kernel == plain, bit-exact, in {n_cases} cases (tolerance 0)")
+
+    def phase_factored_compare(self) -> None:
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash, sieved
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import (
+            minhash_factored, minhash_factored_plain)
+        from bitcoin_miner_tpu_torch.ops.sweep import default_factor_k_in
+
+        torch = self.torch
+        max_err = 0
+        n_cases = 0
+
+        def check(label, got, want):
+            nonlocal max_err, n_cases
+            n_cases += 1
+            err = max(abs(a - b) for a, b in zip(got, want))
+            max_err = max(max_err, err)
+            log(f"  {label}: kernel {got} plain {want} {'OK' if not err else 'MISMATCH'}")
+            if err:
+                raise AssertionError(f"factored kernel != plain ({label})")
+
+        # (data, tail blocks, first tail block holding an inner digit at
+        # d = 10, k = 6, k_in = 3)
+        layouts = (("cmu440", 1, 0), (STRADDLE_DATA, 2, 0), (FIB1_DATA, 2, 1))
+        for data, ntb, fib in layouts:
+            for k in range(2, 7):
+                k_def = default_factor_k_in(k)
+                k_ins = [k_def] + ([1 if k_def > 1 else k - 1] if k > 2 else [])
+                span = 10**k
+                hb = 10 ** (10 - 1) // span + 7
+                rows = [
+                    (hb * span, 0, span),                               # full row
+                    ((hb + 3) * span, span // 8, span - span // 5),     # partial bounds
+                    ((hb + 9) * span, span // 2, span // 2 + span // 50 + 1),
+                    (None, 0, 0),                                       # padding row
+                ]
+                ops, chunks, lay = self.operands(data, 10, k, rows, ntb)
+                if k == MAIN_K and lay.factor(k, k_def).first_inner_word // 16 != fib:
+                    raise AssertionError(f"{data!r}: not the layout this case is for")
+                for k_in in k_ins:
+                    full = minhash_factored_plain(**ops, k_in=k_in).tolist()
+                    nonce = chunks[full[2] // span].base + full[2] % span
+                    if ((full[0] << 32) | full[1]) != hash_nonce(data, nonce):
+                        raise AssertionError(f"plain min disagrees with hashlib at {nonce}")
+                    for th_label, th in (("full", None), ("sieve U32_MAX", U32_MAX),
+                                         ("sieve thresh == min h0", full[0]),
+                                         ("sieve thresh < min h0", full[0] - 1)):
+                        got = minhash_factored(**ops, k_in=k_in, thresh=th).tolist()
+                        check(f"{data[:12]!r} n_tb={ntb} k={k} k_in={k_in} {th_label}",
+                              got, list(sieved(full, th)))
+        torch.cuda.synchronize()
+        # The main path's full dispatches, held to phase 3's plain folds:
+        # both plain versions compute one function (the CPU tests prove it).
+        for data, (ntb, ops, ref, _ms) in list(self.full_disp.items()):
+            for th_label, th in (("full", None), ("sieve U32_MAX", U32_MAX),
+                                 ("sieve thresh == min h0", ref[0]),
+                                 ("sieve thresh < min h0", ref[0] - 1)):
+                got = minhash_factored(**ops, k_in=MAIN_K_IN, thresh=th).tolist()
+                check(f"main-path dispatch B={MAIN_B} x 1e{MAIN_K} {data[:12]!r} "
+                      f"n_tb={ntb} {th_label}", got, list(sieved(ref, th)))
+        # The 56-character message (block 1 is per-group work) at the full
+        # shape, against its own plain run; the unfactored kernel too.
+        rows = [((10**3 + r) * 10**MAIN_K, 0, 10**MAIN_K) for r in range(MAIN_B)]
+        ops, chunks, _lay = self.operands(FIB1_DATA, 10, MAIN_K, rows, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = minhash_factored_plain(**ops, k_in=MAIN_K_IN).tolist()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        nonce = chunks[ref[2] // 10**MAIN_K].base + ref[2] % 10**MAIN_K
+        if ((ref[0] << 32) | ref[1]) != hash_nonce(FIB1_DATA, nonce):
+            raise AssertionError(f"plain min disagrees with hashlib at {nonce}")
+        for th_label, th in (("full", None), ("sieve U32_MAX", U32_MAX),
+                             ("sieve thresh == min h0", ref[0]),
+                             ("sieve thresh < min h0", ref[0] - 1)):
+            check(f"main-path dispatch {FIB1_DATA[:12]!r} factored {th_label}",
+                  minhash_factored(**ops, k_in=MAIN_K_IN, thresh=th).tolist(),
+                  list(sieved(ref, th)))
+            check(f"main-path dispatch {FIB1_DATA[:12]!r} unfactored {th_label}",
+                  minhash(**ops, thresh=th).tolist(), list(sieved(ref, th)))
+        log(f"  factored plain version {plain_ms:.1f} ms for {MAIN_B}e{MAIN_K} lanes, "
+            f"{FIB1_DATA[:12]!r} n_tb=2 [{self.card}]")
+        self.full_disp[FIB1_DATA] = (2, ops, ref, plain_ms)
+        self.f_stats["max_abs_err"] = max_err
+        log(f"factored kernel == plain, bit-exact, in {n_cases} cases (tolerance 0)")
 
     def phase_main_path(self) -> None:
         from bitcoin_miner_tpu_torch import lsp
@@ -247,6 +407,7 @@ class Smoke:
         from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
         from bitcoin_miner_tpu_torch.bitcoin.message import Message, MsgType
         from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
 
         server = lsp.Server(0)
         port = server.port
@@ -256,7 +417,8 @@ class Smoke:
                 ["miner", f"127.0.0.1:{port}", "--backend", "cuda", "--reconnect", "0"])),
             name="port-miner", daemon=True,
         )
-        minhash.launches = 0  # counts from here on are the main path's
+        # Counts from here on are the main path's.
+        minhash.launches = minhash_factored.launches = 0
         t.start()
         try:
             conn, payload = server.read()
@@ -303,6 +465,7 @@ class Smoke:
                 if fold != fold2:
                     raise AssertionError(f"{data!r}: 1e9 split {fold} != 5e8 split {fold2}")
                 log(f"job {data!r} [0, {hi}]: fold {fold} equal over both splits")
+                self.folds[data] = fold
                 rates += [(data, lo, h, (h - lo + 1) / dt) for lo, h, _x, _n, dt in coarse]
             lo, hi = 999_900_000, 1_000_099_999
             (r,) = serve("cmu440", [(lo, hi)], pipelined=False)
@@ -312,7 +475,8 @@ class Smoke:
             log(f"Request across 1e9 equals the min_hash_range oracle: {want}")
             self.k_stats["launches"] = minhash.launches
             self.k_stats["rates"] = rates
-            log(f"main path launched the kernel {minhash.launches} times")
+            log(f"main path launched the kernel {minhash.launches} times "
+                f"(the factored kernel {minhash_factored.launches} times)")
             if minhash.launches <= 0:
                 raise AssertionError("the main path never launched the kernel")
         finally:
@@ -323,13 +487,80 @@ class Smoke:
         if rc.get("rc") != 0:
             raise AssertionError(f"miner main returned {rc.get('rc')}")
 
+    def phase_factored_path(self) -> None:
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
+        from bitcoin_miner_tpu_torch.ops.sweep import SweepPipeline
+
+        def split(lo, hi, size):
+            return [(a, min(a + size - 1, hi)) for a in range(lo, hi + 1, size)]
+
+        across = ("cmu440", 999_900_000, 1_000_099_999)
+        jobs = [("cmu440", r) for r in split(0, 3_999_999_999, 10**9)]
+        jobs += [(TWO_BLOCK_DATA, (0, 999_999_999)), (FIB1_DATA, (0, 999_999_999)),
+                 (across[0], across[1:])]
+        # The 56-character job has no phase-5 fold: the unfactored pipeline
+        # computes it first, outside the counted run.
+        ref = SweepPipeline(backend="cuda")
+        try:
+            r = ref.submit(FIB1_DATA, 0, 999_999_999).result(timeout=300)
+            self.folds[FIB1_DATA] = (r.hash, r.nonce)
+        finally:
+            ref.close()
+        p = SweepPipeline(backend="cuda", factored=True)
+        minhash.launches = minhash_factored.launches = 0  # the factored path's counts
+        try:
+            t0 = time.monotonic()
+            futs = [(data, lo, hi, p.submit(data, lo, hi)) for data, (lo, hi) in jobs]
+            results = []
+            for data, lo, hi, fut in futs:
+                r = fut.result(timeout=300)
+                if not lo <= r.nonce <= hi or r.hash != hash_nonce(data, r.nonce):
+                    raise AssertionError(f"bad factored result {r} for {data!r}[{lo}, {hi}]")
+                results.append((data, lo, hi, r.hash, r.nonce))
+                log(f"  factored {data[:12]!r}[{lo}, {hi}] -> ({r.hash}, {r.nonce})")
+            wall = time.monotonic() - t0
+        finally:
+            p.close()
+        self.f_stats["launches"] = minhash_factored.launches
+        log(f"factored path: {len(jobs)} submits in {wall:.3f} s; launched the factored "
+            f"kernel {minhash_factored.launches} times (the unfactored {minhash.launches})")
+        if minhash_factored.launches <= 0:
+            raise AssertionError("the factored path never launched the factored kernel")
+        for data in ("cmu440", TWO_BLOCK_DATA, FIB1_DATA):
+            fold = min((h, n) for d, lo, hi, h, n in results
+                       if d == data and (d, lo, hi) != across)
+            if fold != self.folds[data]:
+                raise AssertionError(f"{data!r}: factored fold {fold} != unfactored "
+                                     f"{self.folds[data]}")
+            log(f"job {data!r}: factored fold {fold} equals the unfactored fold")
+        got = next((h, n) for d, lo, hi, h, n in results if (d, lo, hi) == across)
+        if got != min_hash_range(*across):
+            raise AssertionError(f"{across}: factored {got} != oracle")
+        log(f"factored Request across 1e9 equals the min_hash_range oracle: {got}")
+
     def phase_numbers(self) -> None:
+        from bitcoin_miner_tpu_torch.ops.sha256 import factor_low_pos
         from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
             bound_seconds, lane_ops, lanes_valid, minhash, sieved)
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
 
         clock_mhz = float((smi("clocks.max.sm").split() or ["0"])[0] or 0)
         if not clock_mhz:
             raise AssertionError("nvidia-smi gave no clocks.max.sm for the bound")
+
+        def bounds_of(ops, ntb):
+            """(bound ms, lane ops) of a dispatch: one bound for the function,
+            counting only work that depends on the inner digits; and the
+            older count over all k low digits, for comparison."""
+            lanes = lanes_valid(ops["bounds"], MAIN_K)
+            inner = factor_low_pos(tuple(ops["low_pos"]), MAIN_K_IN).inner_pos
+            return (bound_seconds(lanes, inner, ntb, clock_mhz * 1e6) * 1e3,
+                    lane_ops(inner, ntb),
+                    bound_seconds(lanes, ops["low_pos"], ntb, clock_mhz * 1e6) * 1e3,
+                    lane_ops(ops["low_pos"], ntb))
+
         results = {}
         for ntb, (ops, ref, plain_ms) in sorted(self.main_ops.items()):
             # The steady-state threshold: the dispatch's own min h0 (from the
@@ -341,34 +572,107 @@ class Smoke:
                 if got != list(sieved(ref, th)):
                     raise AssertionError(f"timed {label} dispatch {got} != plain {ref}")
                 runs[label] = ms
-            lanes = lanes_valid(ops["bounds"], MAIN_K)
-            bound = bound_seconds(lanes, ops["low_pos"], ntb, clock_mhz * 1e6) * 1e3
-            results[ntb] = (runs, bound, plain_ms, lane_ops(ops["low_pos"], ntb))
+            bound, ops_in, bound_all, ops_all = bounds_of(ops, ntb)
+            results[ntb] = (runs, bound, plain_ms, ops_in, bound_all, ops_all)
             log(f"full dispatch B={MAIN_B} x 1e{MAIN_K} lanes, n_tb={ntb}: sieve (steady "
                 f"threshold) {runs['sieve']:.3f} ms, sieve (U32_MAX) "
                 f"{runs['sieve U32_MAX']:.3f} ms, full fold {runs['full']:.3f} ms; plain "
                 f"{plain_ms:.1f} ms; bound {bound:.3f} ms at {clock_mhz:.0f} MHz "
-                f"(lane ops logic, adds = {results[ntb][3]}); "
-                f"{lanes / runs['sieve'] * 1e3:.3e} nonces/s [{self.card}]")
-        runs, bound, plain_ms, ops1 = results[1]
-        runs2, bound2, plain_ms2, ops2 = results[2]
+                f"(inner-digit lane ops logic, adds = {ops_in}; over all {MAIN_K} "
+                f"digits {ops_all}: {bound_all:.3f} ms); "
+                f"{lanes_valid(ops['bounds'], MAIN_K) / runs['sieve'] * 1e3:.3e} "
+                f"nonces/s [{self.card}]")
+        runs, bound, plain_ms, ops1, bound1_all, _ = results[1]
+        runs2, bound2, plain_ms2, ops2, bound2_all, _ = results[2]
         self.k_stats.update(
             ms=runs["sieve"], ms_sieve_u32max=runs["sieve U32_MAX"],
             ms_full_fold=runs["full"], plain_ms=plain_ms, bound_ms=bound,
+            bound_ms_all_k_digits=bound1_all,
             lane_ops=ops1, ms_two_blocks=runs2["sieve"], plain_ms_two_blocks=plain_ms2,
-            bound_ms_two_blocks=bound2, lane_ops_two_blocks=ops2,
+            bound_ms_two_blocks=bound2, bound_ms_two_blocks_all_k_digits=bound2_all,
+            lane_ops_two_blocks=ops2,
             shape=f"B={MAIN_B} x 1e{MAIN_K} lanes, d=10, n_tb=1, sieve, steady threshold",
             sm_clock_mhz=clock_mhz,
         )
         for data, lo, hi, rate in self.k_stats.get("rates", []):
             log(f"nonces/s per Request {data[:12]!r}[{lo}, {hi}]: {rate:,.0f} [{self.card}]")
 
+        # Both kernels on the same full dispatches, in turns (unfactored,
+        # factored, factored, unfactored), both forms.
+        per_msg = {}
+        for data, (ntb, ops, ref, plain_ms) in self.full_disp.items():
+            fns = {"unfactored": lambda th: minhash(**ops, thresh=th),
+                   "factored": lambda th: minhash_factored(**ops, k_in=MAIN_K_IN, thresh=th)}
+            times = {}
+            for form, th in (("sieve", ref[0]), ("full", None)):
+                acc = {"unfactored": [], "factored": []}
+                for name in ("unfactored", "factored", "factored", "unfactored"):
+                    ms, got = self.time_kernel(lambda: fns[name](th), reps=5, warm=1)
+                    if got != list(sieved(ref, th)):
+                        raise AssertionError(f"timed {name} {form} dispatch {got} != plain {ref}")
+                    acc[name].append(ms)
+                for name, v in acc.items():
+                    times[f"{name}_{form}_ms"] = v
+            bound, ops_in, bound_all, ops_all = bounds_of(ops, ntb)
+            per_msg[data] = dict(n_tb=ntb, bound_ms=bound, lane_ops=ops_in,
+                                 bound_ms_all_k_digits=bound_all, lane_ops_all_k_digits=ops_all,
+                                 factored_plain_ms=plain_ms, **times)
+            log(f"full dispatch {data[:12]!r} n_tb={ntb}: " + ", ".join(
+                f"{key} {v[0]:.3f}/{v[1]:.3f}" for key, v in times.items())
+                + f"; bound {bound:.3f} ms (all-k count {bound_all:.3f} ms) [{self.card}]")
+        fib1 = per_msg[FIB1_DATA]
+        self.f_stats.update(
+            ms=sum(fib1["factored_sieve_ms"]) / 2,
+            plain_ms=fib1["factored_plain_ms"], bound_ms=fib1["bound_ms"],
+            shape=f"B={MAIN_B} x 1e{MAIN_K} lanes (k_in={MAIN_K_IN}), d=10, "
+                  f"{len(FIB1_DATA)}-char message, n_tb=2, sieve, steady threshold",
+            per_message={d[:12]: v for d, v in per_msg.items()}, sm_clock_mhz=clock_mhz,
+        )
+        self.f_stats["request_pair"] = self.request_pair()
+
+    def request_pair(self) -> dict:
+        """nonces/s per 1e9-nonce Request on both rungs: the same Requests
+        through an unfactored and a factored pipeline, in turns (U, F, F,
+        U); each result held to hashlib and to the other rung's."""
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.ops.sweep import SweepPipeline
+
+        pipes = {"unfactored": SweepPipeline(backend="cuda"),
+                 "factored": SweepPipeline(backend="cuda", factored=True)}
+        pair = {}
+        try:
+            for p in pipes.values():  # warm: stream, pinned buffers
+                p.submit("cmu440", 2 * 10**9, 2 * 10**9 + 10**6 - 1).result(timeout=300)
+            lo, hi = 10**9, 2 * 10**9 - 1
+            for data in ("cmu440", TWO_BLOCK_DATA, FIB1_DATA):
+                rates, found = {}, set()
+                for name in ("unfactored", "factored", "factored", "unfactored"):
+                    t0 = time.monotonic()
+                    r = pipes[name].submit(data, lo, hi).result(timeout=300)
+                    dt = time.monotonic() - t0
+                    if r.hash != hash_nonce(data, r.nonce):
+                        raise AssertionError(f"{name} {data!r}: bad result {r}")
+                    found.add((r.hash, r.nonce))
+                    rates.setdefault(name, []).append((hi - lo + 1) / dt)
+                if len(found) != 1:
+                    raise AssertionError(f"{data!r}: the rungs disagree: {found}")
+                pair[data[:12]] = rates
+                log(f"nonces/s per 1e9 Request {data[:12]!r}[{lo}, {hi}], U F F U: "
+                    f"unfactored {rates['unfactored']}, factored {rates['factored']} "
+                    f"[{self.card}]")
+        finally:
+            for p in pipes.values():
+                p.close()
+        return pair
+
     def run(self) -> int:
         phases = [
             ("environment", self.phase_env),
             ("build", self.phase_build),
             ("kernel vs plain", self.phase_compare),
+            ("factored kernel vs plain", self.phase_factored_compare),
             ("main path", self.phase_main_path),
+            ("factored path", self.phase_factored_path),
             ("numbers", self.phase_numbers),
         ]
         for name, fn in phases:
@@ -386,23 +690,31 @@ class Smoke:
         if self.failures:
             log(f"FAILED phases: {self.failures}")
             return 1
-        s = self.k_stats
+        s, f = self.k_stats, self.f_stats
+        common = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms")
         line = {"kernels": [{
             "name": "sha256_minhash",
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES,
-            "launches": s["launches"],
-            "max_abs_err": s["max_abs_err"],
-            "ms": s["ms"],
-            "plain_ms": s["plain_ms"],
-            "bound_ms": s["bound_ms"],
+            **{key: s[key] for key in common},
             "bound_by": "operations",
             "library_ms": None,
             **{key: s[key] for key in (
-                "shape", "ms_sieve_u32max", "ms_full_fold", "lane_ops", "ms_two_blocks",
-                "plain_ms_two_blocks", "bound_ms_two_blocks", "lane_ops_two_blocks",
-                "sm_clock_mhz", "sass")},
+                "shape", "ms_sieve_u32max", "ms_full_fold", "lane_ops",
+                "bound_ms_all_k_digits", "ms_two_blocks", "plain_ms_two_blocks",
+                "bound_ms_two_blocks", "bound_ms_two_blocks_all_k_digits",
+                "lane_ops_two_blocks", "sm_clock_mhz", "sass", "ptxas")},
+        }, {
+            "name": "sha256_minhash_factored",
+            "route": "cuda",
+            "source": F_SOURCE,
+            "replaces": F_REPLACES,
+            **{key: f[key] for key in common},
+            "bound_by": "operations",
+            "library_ms": None,
+            **{key: f[key] for key in (
+                "shape", "per_message", "request_pair", "sm_clock_mhz", "sass", "ptxas")},
         }]}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)

@@ -1,4 +1,4 @@
-"""The CUDA min-hash kernel against its plain PyTorch version, on the card.
+"""The CUDA min-hash kernels against their plain PyTorch versions, on the card.
 
 Marked ``gpu``: without a CUDA card each test skips with a reason.  This
 file imports only the port (no JAX), so it also runs on a machine without
@@ -21,6 +21,10 @@ from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
     U32_MAX,
     minhash,
     minhash_plain,
+)
+from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import (
+    minhash_factored,
+    minhash_factored_plain,
 )
 
 
@@ -80,3 +84,44 @@ def test_sweep_cuda_matches_oracle(cuda_device):
     r = sweep.sweep_min_hash("cmu440", 999_990, 1_000_020, device=cuda_device)
     assert (r.hash, r.nonce) == min_hash_range("cmu440", 999_990, 1_000_020)
     assert minhash.launches > n0
+
+
+# (data, d, k, k_in): inner digits in the one tail block; straddling into
+# the second; all in the second (the first block is per-group work).
+FACTORED_LAYOUTS = [
+    ("cmu440", 10, 6, 3),
+    ("How vexingly quick daft zebras jump, said the old man.", 10, 6, 3),
+    ("Pack my box with five dozen liquor jugs, then ship it!!!", 10, 6, 3),
+    ("Pack my box with five dozen liquor jugs, then ship it!!!", 10, 4, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,d,k,k_in", FACTORED_LAYOUTS)
+@pytest.mark.parametrize("sieve", [False, True])
+def test_factored_kernel_matches_plain_on_card(cuda_device, data, d, k, k_in, sieve):
+    ops = _operands(data, d, k, 4, seed=d + k + k_in, device=cuda_device)
+    full = minhash_factored_plain(**ops, k_in=k_in).tolist()
+    assert full[2] != I32_MAX
+    assert minhash_plain(**ops).tolist() == full
+    ths = [U32_MAX, full[0], full[0] - 1] if sieve else [None]
+    for th in ths:
+        got = minhash_factored(**ops, k_in=k_in, thresh=th)
+        torch.cuda.synchronize()
+        assert got.tolist() == minhash_factored_plain(**ops, k_in=k_in, thresh=th).tolist(), th
+
+
+@pytest.mark.gpu
+def test_factored_kernel_padding_only_dispatch(cuda_device):
+    ops = _operands("cmu440", 10, 6, 2, seed=0, device=cuda_device)
+    ops["bounds"].zero_()
+    assert minhash_factored(**ops, k_in=3).tolist() == [U32_MAX, U32_MAX, I32_MAX]
+
+
+@pytest.mark.gpu
+def test_sweep_factored_cuda_matches_oracle(cuda_device):
+    n0 = minhash_factored.launches
+    r = sweep.sweep_min_hash("cmu440", 999_990, 1_000_020, device=cuda_device,
+                             factored=True)
+    assert (r.hash, r.nonce) == min_hash_range("cmu440", 999_990, 1_000_020)
+    assert minhash_factored.launches > n0

@@ -221,7 +221,7 @@ def test_sweep_host_routing_and_defaults():
     r = sweep.sweep_min_hash("abc", 95, 321, device="cpu", host_lane_budget=10**3)
     assert (r.hash, r.nonce) == min_hash_range("abc", 95, 321)
     cpu = torch.device("cpu")
-    assert sweep.auto_tune(None, None, None, None, cpu) == ("torch", 4, 5, False)
+    assert sweep.auto_tune(None, None, None, None, cpu) == ("torch", 4, 5, False, False)
     with pytest.raises(ValueError, match="CUDA"):
         sweep.auto_tune("cuda", None, None, None, cpu)
     with pytest.raises(ValueError, match="int32"):
