@@ -1,7 +1,6 @@
-// Per-lane SHA-256 of the min-hash sweep: message assembly from the
-// row's word template plus the lane's k low decimal digits, and the
-// compression rounds, whole or split at round p (compress_prefix once per
-// group, compress_from per lane) for the factored kernel.
+// Per-lane SHA-256 of the min-hash sweeps: the compression rounds, whole
+// or split at round p (compress_prefix once per row or group,
+// compress_from per lane).
 #pragma once
 
 #include <stdint.h>
@@ -14,13 +13,6 @@ namespace bmt {
 // so k <= 9 and the k digit bytes span at most 3 consecutive tail words.
 constexpr int kMaxDigits = 9;
 constexpr int kDigitSlots = 3;
-
-struct DigitArgs {
-  int k;                     // low digits generated per lane, 1..9
-  int base_word;             // first tail word the low digits touch
-  int word[kMaxDigits];      // tail word of low digit j (most significant first)
-  int shift[kMaxDigits];     // left shift of its ASCII byte within that word
-};
 
 __constant__ uint32_t kK[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
@@ -94,7 +86,8 @@ BMT_FN void compress(const uint32_t st[8], uint32_t w[16], uint32_t out[8]) {
 
 // Rounds [0, p) of a compression from state st, 0 <= p <= 16 (they read
 // only w[0..p-1]): the carried state mid that compress_from resumes.  The
-// factored kernel runs it once per (row, outer group), not per lane.
+// min-hash kernels run it once per chunk row or per (row, outer group),
+// not per lane.
 BMT_FN void compress_prefix(const uint32_t st[8], const uint32_t w[16], int p,
                             uint32_t mid[8]) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
@@ -160,50 +153,6 @@ BMT_FN void compress_from(const uint32_t st[8], const uint32_t mid[8], int p,
   out[5] = st[5] + f;
   out[6] = st[6] + g;
   out[7] = st[7] + h;
-}
-
-// (h0, h1) of lane `lane` of one chunk row: the row's NB*16 template words
-// `tmpl` (high digits already folded in on the host) with the lane's k low
-// digits ORed in, compressed from the host-folded midstate.
-template <int NB>
-BMT_FN void lane_hash(const uint32_t mid[8], const uint32_t tmpl[NB * 16],
-                      const DigitArgs& da, uint32_t lane, uint32_t& h0,
-                      uint32_t& h1) {
-  // Digits least significant first: digit index k-1 is lane % 10.  The
-  // byte of each lands in one of at most 3 word slots after base_word.
-  uint32_t slot[kDigitSlots] = {0u, 0u, 0u};
-  uint32_t x = lane;
-#pragma unroll
-  for (int j = kMaxDigits - 1; j >= 0; --j) {
-    if (j < da.k) {
-      const uint32_t q = x / 10u;
-      const uint32_t c = (48u + (x - q * 10u)) << da.shift[j];
-      x = q;
-      const int rel = da.word[j] - da.base_word;
-#pragma unroll
-      for (int s = 0; s < kDigitSlots; ++s) slot[s] |= rel == s ? c : 0u;
-    }
-  }
-  uint32_t w[NB * 16];
-#pragma unroll
-  for (int i = 0; i < NB * 16; ++i) {
-    const int rel = i - da.base_word;
-    uint32_t v = tmpl[i];
-#pragma unroll
-    for (int s = 0; s < kDigitSlots; ++s) v |= rel == s ? slot[s] : 0u;
-    w[i] = v;
-  }
-  uint32_t st[8], out[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) st[i] = mid[i];
-#pragma unroll
-  for (int blk = 0; blk < NB; ++blk) {
-    compress(st, w + blk * 16, out);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) st[i] = out[i];
-  }
-  h0 = st[0];
-  h1 = st[1];
 }
 
 }  // namespace bmt

@@ -139,6 +139,18 @@ def sieved(best: Sequence[int], thresh: Optional[int]) -> Tuple[int, int, int]:
     return tuple(int(v) for v in best)
 
 
+def resume_point(low_pos: Sequence, n_tail_blocks: int) -> Tuple[int, int]:
+    """``(first_block, round)``: the tail block that holds the first word a
+    low digit touches, and the rounds of that block before it.  Every round
+    before that point reads only words that are the same for every lane of
+    a chunk row, so the kernel runs them once per CUDA block and each lane
+    resumes there."""
+    words = [w for w, _ in _pairs(low_pos)]
+    if not 0 <= min(words) <= max(words) < 16 * n_tail_blocks:
+        raise ValueError(f"low digit words {words} are not all in {n_tail_blocks} tail blocks")
+    return divmod(min(words), 16)
+
+
 def _launch_args(midstate, tail, bounds, low_pos, thresh):
     """What a kernel launch takes beyond the checked operands: raises on
     non-contiguous operands or a threshold outside uint32, and returns the
@@ -164,7 +176,7 @@ def _launch_args(midstate, tail, bounds, low_pos, thresh):
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bmt_sha256_minhash.argtypes = [p, p, p, i, i, i, p, p, i, p, p, p, p]
+    lib.bmt_sha256_minhash.argtypes = [p, p, p, i, i, i, p, p, i, i, i, p, p, p, p]
     lib.bmt_sha256_minhash.restype = i
     lib.bmt_sha256_minhash_partials.argtypes = [i, i]
     lib.bmt_sha256_minhash_partials.restype = ctypes.c_longlong
@@ -204,7 +216,7 @@ def minhash(
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.bmt_sha256_minhash(
         midstate.data_ptr(), tail.data_ptr(), bounds.data_ptr(), batch, n_tb, k,
-        words, shifts, int(thresh is not None),
+        words, shifts, *resume_point(low_pos, n_tb), int(thresh is not None),
         None if th_word is None else th_word.data_ptr(),
         partials.data_ptr(), out.data_ptr(), stream,
     )

@@ -13,10 +13,12 @@ Phases (any failure ends the run non-zero, with no result line):
    each, started together, for sm_90a, printing ``-Xptxas -v`` (registers,
    spills) and the static SASS mix per kernel;
 3. kernel vs plain — the min-hash kernel against its plain PyTorch version
-   on the card, bit-exact, over both sieve forms, 1 and 2 tail blocks, k 5
-   and 6, partial-bound and padding rows and three thresholds; then at the
-   main path's own shape (1024 rows x 10^6 lanes, 1 and 2 tail blocks) and
-   a 500-row partial batch;
+   on the card, bit-exact, over both sieve forms, 1 and 2 tail blocks, k 1
+   to 6, partial-bound rows (bounds inside a run of 10 lanes too) and
+   padding rows and three thresholds, with the low digits in the one tail
+   block, straddling the two, or all in the second; then at the main
+   path's own shape (1024 rows x 10^6 lanes, 1 and 2 tail blocks) and a
+   500-row partial batch;
 4. factored kernel vs plain — the factored kernel against its plain
    version, bit-exact, both forms, k 2..6 with the default k_in and one
    other, three layouts (inner digits in the one tail block; straddling
@@ -33,8 +35,10 @@ Phases (any failure ends the run non-zero, with no result line):
    checked against hashlib, every job's fold against the unfactored one,
    the Request across 1e9 against the oracle, and the factored kernel's
    launch count;
-7. numbers — ms per full dispatch of both kernels on the same dispatches
-   (CUDA events, in turns, each timed output held to the plain version),
+7. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+   50- and the 56-character message) and of both kernels on the same
+   dispatches (CUDA events, in turns, each timed output held to the plain
+   version),
    the plain versions' ms at that shape and the bound, nonces/s per 1e9
    Request on both rungs as an interleaved same-seed pair, each beside the
    card.
@@ -147,7 +151,7 @@ class Smoke:
         self.failures = []
         self.k_stats = {}
         self.f_stats = {}  # the factored kernel's
-        self.main_ops = {}  # n_tb -> (operands, plain result, plain ms) of a full dispatch
+        self.plain_ms = {}  # job data -> ms of the plain version on its full dispatch
         # message -> (n_tb, operands, plain result, plain ms or None) of a
         # full dispatch that both kernels are timed on
         self.full_disp = {}
@@ -240,45 +244,62 @@ class Smoke:
         torch = self.torch
         max_err = 0
         n_cases = 0
-        for data, d, ntb in (("cmu440", 10, 1), (TWO_BLOCK_DATA, 10, 2)):
-            for k in (6, 5):
-                span = 10**k
-                hb = 10 ** (d - 1) // span + 7  # any high-digit prefix of class d
+        # (data, tail blocks, k) at d = 10: the main path's two layouts at
+        # k 6 and 5, and at k 1..4 (a row shorter than a run of 10 lanes or
+        # a block's tile); the 56-character message with its low digits
+        # straddling tail blocks 1 and 2 (k 6) or all in block 2 (k 3, so
+        # the row's constant prefix is all of block 1); the 54-character
+        # one at k 6.
+        layouts = [(data, ntb, k) for data, ntb in (("cmu440", 1), (TWO_BLOCK_DATA, 2))
+                   for k in (6, 5, 4, 3, 2, 1)]
+        layouts += [(FIB1_DATA, 2, 6), (FIB1_DATA, 2, 3), (STRADDLE_DATA, 2, 6)]
+        d = 10
+        for data, ntb, k in layouts:
+            span = 10**k
+            hb = 10 ** (d - 1) // span + 7  # any high-digit prefix of class d
+            if k >= 5:
                 rows = [
                     (hb * span, 0, span),                 # full row
                     ((hb + 3) * span, 123, span - 77),    # partial bounds
                     ((hb + 9) * span, span // 2, span // 2 + 1000),
                     (None, 0, 0),                         # padding row
                 ]
-                ops, chunks, _lay = self.operands(data, d, k, rows, ntb)
-                full = minhash(**ops)
-                torch.cuda.synchronize()
-                ref = minhash_plain(**ops)
-                h0, h1, fi = full.tolist()
-                if fi == I32_MAX:
-                    raise AssertionError("full fold found no lane")
-                nonce = chunks[fi // span].base + fi % span
-                if ((h0 << 32) | h1) != hash_nonce(data, nonce):
-                    raise AssertionError(f"kernel min disagrees with hashlib at {nonce}")
-                cases = [
-                    ("full", None),
-                    ("sieve U32_MAX", U32_MAX),
-                    ("sieve thresh == min h0 (tie survives)", h0),
-                    ("sieve thresh < min h0 (I32_MAX)", h0 - 1),
+            else:  # partial rows start and end inside a run of 10 lanes
+                rows = [
+                    (hb * span, 0, span),
+                    ((hb + 3) * span, span // 7 + 3, span - span // 9 - 1),
+                    ((hb + 9) * span, span // 2 + 1, span // 2 + span // 50 + 3),
+                    (None, 0, 0),
                 ]
-                for label, th in cases:
-                    got = minhash(**ops, thresh=th)
-                    torch.cuda.synchronize()
-                    want = ref if th is None else minhash_plain(**ops, thresh=th)
-                    err = int((got - want).abs().max())
-                    max_err = max(max_err, err)
-                    n_cases += 1
-                    log(f"  n_tb={ntb} k={k} {label}: kernel {got.tolist()} "
-                        f"plain {want.tolist()} {'OK' if err == 0 else 'MISMATCH'}")
-                    if err:
-                        raise AssertionError(f"kernel != plain ({label}, n_tb={ntb}, k={k})")
-                    if th is not None and th < h0 and got.tolist() != [U32_MAX, U32_MAX, I32_MAX]:
-                        raise AssertionError("threshold below the min did not give the sentinel")
+            ops, chunks, _lay = self.operands(data, d, k, rows, ntb)
+            full = minhash(**ops)
+            torch.cuda.synchronize()
+            ref = minhash_plain(**ops)
+            h0, h1, fi = full.tolist()
+            if fi == I32_MAX:
+                raise AssertionError("full fold found no lane")
+            nonce = chunks[fi // span].base + fi % span
+            if ((h0 << 32) | h1) != hash_nonce(data, nonce):
+                raise AssertionError(f"kernel min disagrees with hashlib at {nonce}")
+            cases = [
+                ("full", None),
+                ("sieve U32_MAX", U32_MAX),
+                ("sieve thresh == min h0 (tie survives)", h0),
+                ("sieve thresh < min h0 (I32_MAX)", h0 - 1),
+            ]
+            for label, th in cases:
+                got = minhash(**ops, thresh=th)
+                torch.cuda.synchronize()
+                want = ref if th is None else minhash_plain(**ops, thresh=th)
+                err = int((got - want).abs().max())
+                max_err = max(max_err, err)
+                n_cases += 1
+                log(f"  {data[:12]!r} n_tb={ntb} k={k} {label}: kernel {got.tolist()} "
+                    f"plain {want.tolist()} {'OK' if err == 0 else 'MISMATCH'}")
+                if err:
+                    raise AssertionError(f"kernel != plain ({data[:12]!r} {label}, n_tb={ntb}, k={k})")
+                if th is not None and th < h0 and got.tolist() != [U32_MAX, U32_MAX, I32_MAX]:
+                    raise AssertionError("threshold below the min did not give the sentinel")
         # The main path's own dispatches: B=1024 rows x 10^6 lanes at d=10
         # (flat_idx up to 1.024e9, grid.y 1024), and the partial batch of a
         # 5e8-nonce Request (500 rows, then padding).  The plain version runs
@@ -312,7 +333,7 @@ class Smoke:
             log(f"  plain version {plain_ms:.1f} ms for {n_valid}e{MAIN_K} lanes, "
                 f"n_tb={ntb} [{self.card}]")
             if n_valid == MAIN_B:
-                self.main_ops[ntb] = (ops, ref, plain_ms)
+                self.plain_ms[data] = plain_ms
                 self.full_disp[data] = (ntb, ops, ref, None)
         self.k_stats["max_abs_err"] = max_err
         log(f"kernel == plain, bit-exact, in {n_cases} cases (tolerance 0)")
@@ -398,6 +419,7 @@ class Smoke:
         log(f"  factored plain version {plain_ms:.1f} ms for {MAIN_B}e{MAIN_K} lanes, "
             f"{FIB1_DATA[:12]!r} n_tb=2 [{self.card}]")
         self.full_disp[FIB1_DATA] = (2, ops, ref, plain_ms)
+        self.plain_ms[FIB1_DATA] = plain_ms  # the factored plain: the same function
         self.f_stats["max_abs_err"] = max_err
         log(f"factored kernel == plain, bit-exact, in {n_cases} cases (tolerance 0)")
 
@@ -562,7 +584,11 @@ class Smoke:
                     lane_ops(ops["low_pos"], ntb))
 
         results = {}
-        for ntb, (ops, ref, plain_ms) in sorted(self.main_ops.items()):
+        # The unfactored kernel on the three full dispatches: "cmu440" (1
+        # tail block), the 50- and the 56-character message (2 blocks).
+        for data in ("cmu440", TWO_BLOCK_DATA, FIB1_DATA):
+            ntb, ops, ref, _f_plain_ms = self.full_disp[data]
+            plain_ms = self.plain_ms[data]
             # The steady-state threshold: the dispatch's own min h0 (from the
             # plain version), which a sweep's running min reaches after its
             # first dispatch.  Every timed call's output is held to plain.
@@ -573,8 +599,8 @@ class Smoke:
                     raise AssertionError(f"timed {label} dispatch {got} != plain {ref}")
                 runs[label] = ms
             bound, ops_in, bound_all, ops_all = bounds_of(ops, ntb)
-            results[ntb] = (runs, bound, plain_ms, ops_in, bound_all, ops_all)
-            log(f"full dispatch B={MAIN_B} x 1e{MAIN_K} lanes, n_tb={ntb}: sieve (steady "
+            results[data] = (runs, bound, plain_ms, ops_in, bound_all, ops_all)
+            log(f"full dispatch B={MAIN_B} x 1e{MAIN_K} lanes, {data[:12]!r} n_tb={ntb}: sieve (steady "
                 f"threshold) {runs['sieve']:.3f} ms, sieve (U32_MAX) "
                 f"{runs['sieve U32_MAX']:.3f} ms, full fold {runs['full']:.3f} ms; plain "
                 f"{plain_ms:.1f} ms; bound {bound:.3f} ms at {clock_mhz:.0f} MHz "
@@ -582,15 +608,18 @@ class Smoke:
                 f"digits {ops_all}: {bound_all:.3f} ms); "
                 f"{lanes_valid(ops['bounds'], MAIN_K) / runs['sieve'] * 1e3:.3e} "
                 f"nonces/s [{self.card}]")
-        runs, bound, plain_ms, ops1, bound1_all, _ = results[1]
-        runs2, bound2, plain_ms2, ops2, bound2_all, _ = results[2]
+        runs, bound, plain_ms, ops1, bound1_all, _ = results["cmu440"]
+        runs2, bound2, plain_ms2, ops2, bound2_all, _ = results[TWO_BLOCK_DATA]
+        runs3, bound3, plain_ms3, ops3, _bound3_all, _ = results[FIB1_DATA]
         self.k_stats.update(
             ms=runs["sieve"], ms_sieve_u32max=runs["sieve U32_MAX"],
             ms_full_fold=runs["full"], plain_ms=plain_ms, bound_ms=bound,
             bound_ms_all_k_digits=bound1_all,
             lane_ops=ops1, ms_two_blocks=runs2["sieve"], plain_ms_two_blocks=plain_ms2,
             bound_ms_two_blocks=bound2, bound_ms_two_blocks_all_k_digits=bound2_all,
-            lane_ops_two_blocks=ops2,
+            lane_ops_two_blocks=ops2, ms_56_chars=runs3["sieve"],
+            ms_full_fold_56_chars=runs3["full"], plain_ms_56_chars=plain_ms3,
+            bound_ms_56_chars=bound3, lane_ops_56_chars=ops3,
             shape=f"B={MAIN_B} x 1e{MAIN_K} lanes, d=10, n_tb=1, sieve, steady threshold",
             sm_clock_mhz=clock_mhz,
         )
@@ -704,7 +733,9 @@ class Smoke:
                 "shape", "ms_sieve_u32max", "ms_full_fold", "lane_ops",
                 "bound_ms_all_k_digits", "ms_two_blocks", "plain_ms_two_blocks",
                 "bound_ms_two_blocks", "bound_ms_two_blocks_all_k_digits",
-                "lane_ops_two_blocks", "sm_clock_mhz", "sass", "ptxas")},
+                "lane_ops_two_blocks", "ms_56_chars", "ms_full_fold_56_chars",
+                "plain_ms_56_chars", "bound_ms_56_chars", "lane_ops_56_chars",
+                "sm_clock_mhz", "sass", "ptxas")},
         }, {
             "name": "sha256_minhash_factored",
             "route": "cuda",

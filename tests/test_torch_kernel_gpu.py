@@ -71,6 +71,51 @@ def test_kernel_matches_plain_on_card(cuda_device, data, d, k, sieve):
         assert got.tolist() == minhash_plain(**ops, thresh=th).tolist(), th
 
 
+FIFTY = "The quick brown fox jumps over the lazy dog again!"
+STRADDLE = "How vexingly quick daft zebras jump, said the old man."
+FIB1 = "Pack my box with five dozen liquor jugs, then ship it!!!"
+# (data, d, k): rows shorter than a run of 10 lanes or a block's tile (k 1
+# to 4, one and two tail blocks); the low digits straddling tail blocks 1
+# and 2 (56 and 54 characters, k 6) or all in block 2 (56 characters, k 3,
+# so the row's constant prefix is all of block 1).
+RUN_LAYOUTS = ([("cmu440", 10, k) for k in (1, 2, 3, 4)]
+               + [(FIFTY, 10, k) for k in (1, 2, 3, 4)]
+               + [(FIB1, 10, 6), (FIB1, 10, 3), (STRADDLE, 10, 6)])
+
+
+def _run_operands(data: str, d: int, k: int, device):
+    """One dispatch whose partial rows start and end inside a run of 10
+    lanes (no bound a multiple of 10), plus a padding row."""
+    lay = build_layout(data.encode(), d)
+    span = 10**k
+    high = 10 ** (d - k - 1) + 7
+    bounds = [(0, span), (span // 7 + 4, span - span // 9 - 1),
+              (span // 2 + 1, span // 2 + span // 50 + 3)]
+    chunks = [sweep.Chunk((high + 3 * r) * span, lo, hi) for r, (lo, hi) in enumerate(bounds)]
+    group = sweep.ChunkGroup(d=d, k=k, chunks=tuple(chunks))
+    tail, bnd = sweep._fill_templates(lay, group, chunks, len(chunks) + 1)
+    return dict(
+        midstate=torch.tensor(lay.midstate, dtype=torch.int64).to(torch.uint32).to(device),
+        tail=torch.from_numpy(tail).to(device),
+        bounds=torch.from_numpy(bnd).to(device),
+        low_pos=lay.digit_pos[d - k :],
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,d,k", RUN_LAYOUTS)
+@pytest.mark.parametrize("sieve", [False, True])
+def test_kernel_runs_and_row_prefix_match_plain_on_card(cuda_device, data, d, k, sieve):
+    ops = _run_operands(data, d, k, cuda_device)
+    full = minhash_plain(**ops).tolist()
+    assert full[2] != I32_MAX
+    ths = [U32_MAX, full[0], full[0] - 1] if sieve else [None]
+    for th in ths:
+        got = minhash(**ops, thresh=th)
+        torch.cuda.synchronize()
+        assert got.tolist() == minhash_plain(**ops, thresh=th).tolist(), th
+
+
 @pytest.mark.gpu
 def test_kernel_padding_only_dispatch(cuda_device):
     ops = _operands("cmu440", 10, 6, 2, seed=0, device=cuda_device)

@@ -20,6 +20,7 @@ from bitcoin_miner_tpu.ops.pallas_sha256 import (
     window_contribs_np,
 )
 from bitcoin_miner_tpu.ops.sha256 import build_layout as ref_build_layout
+from bitcoin_miner_tpu.ops.sha256 import compress as ref_compress
 from bitcoin_miner_tpu_torch.ops import sha256_minhash, sweep
 from bitcoin_miner_tpu_torch.ops.sha256 import build_layout
 from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
@@ -185,6 +186,64 @@ def test_lane_ops_counts_only_lane_dependent_work():
     assert (logic, adds) < (1014, 352) and logic > 900
     b = sha256_minhash.bound_seconds(10**9, low, 1, 1.98e9)
     assert b == pytest.approx(10**9 * max(logic / 64, (logic + adds) / 128) / (132 * 1.98e9))
+
+
+# "cmu440" and messages of 50, 54 and 56 characters: at d = 10 the low six
+# digits lie in the one tail block (words 2-4), at the end of block 1
+# (words 13-15), and across blocks 1 and 2 (words 14-16, 15-16).
+RESUME_DATA = ["cmu440", "The quick brown fox jumps over the lazy dog again!",
+               "How vexingly quick daft zebras jump, said the old man.",
+               "Pack my box with five dozen liquor jugs, then ship it!!!"]
+
+
+def _lane_words(lay, lane):
+    """The reference layout's tail words of lane ``lane`` of the chunk row
+    whose high digits are 1 followed by zeros."""
+    digits = str(10 ** (lay.digit_count - 1) + lane)
+    words = [np.uint32(w) for w in lay.tail_template]
+    for ch, pos in zip(digits, lay.digit_pos):
+        words[pos.word] |= np.uint32(ord(ch) << pos.shift)
+    return words
+
+
+@pytest.mark.parametrize("data", RESUME_DATA)
+@pytest.mark.parametrize("d", range(7, 21))
+def test_resume_point_against_reference_layout(data, d):
+    lay = ref_build_layout(data.encode(), d)
+    n_tb = lay.n_tail_blocks
+    for k in range(1, min(d, 9) + 1):
+        low = lay.digit_pos[d - k :]
+        fb, p = sha256_minhash.resume_point(low, n_tb)
+        assert 0 <= fb < n_tb and 0 <= p < 16
+        assert 16 * fb + p == min(q.word for q in low)
+
+
+@pytest.mark.parametrize("data", RESUME_DATA)
+@pytest.mark.parametrize("d", [7, 10, 16, 20])
+def test_resume_point_state_is_row_constant(data, d):
+    # With the reference compression, on the lowest and the highest lane of
+    # a row at the main path's k: the state at the resume point is the
+    # same for both, and one round later it is not.
+    lay = ref_build_layout(data.encode(), d)
+    n_tb = lay.n_tail_blocks
+    k = min(d - 1, 6)
+    fb, p = sha256_minhash.resume_point(lay.digit_pos[d - k :], n_tb)
+    lanes = [_lane_words(lay, lane) for lane in (0, 10**k - 1)]
+    words = [np.array(pair, dtype=np.uint32) for pair in zip(*lanes)]
+    state = [np.full(2, v, dtype=np.uint32) for v in lay.midstate]
+    for blk in range(fb):
+        state = ref_compress(state, words[16 * blk : 16 * blk + 16])
+    block = words[16 * fb : 16 * fb + 16]
+    at = np.array(ref_compress(state, block, stop_round=p)[1])
+    after = np.array(ref_compress(state, block, stop_round=p + 1)[1])
+    assert (at[:, 0] == at[:, 1]).all()
+    assert (after[:, 0] != after[:, 1]).any()
+
+
+def test_resume_point_rejects_a_word_outside_the_tail():
+    assert sha256_minhash.resume_point([(31, 0), (32, 24)], 3) == (1, 15)
+    with pytest.raises(ValueError):
+        sha256_minhash.resume_point([(31, 0), (32, 24)], 2)
 
 
 def test_minhash_rejects_bad_operands():
