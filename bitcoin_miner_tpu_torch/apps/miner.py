@@ -1,28 +1,42 @@
 """The miner worker binary: Join, then Request→sweep→Result forever.
 
 CLI parity with the reference stub (``bitcoin/miner/miner.go:18-24``):
-``miner <hostport>``, with the hash search on one of these backends:
+``miner <hostport>``, with the hash search on one of these backends (the
+tiers of the workload's ladder):
 
-- ``cuda``  — the hand-written Hopper kernel through the sweep pipeline
-- ``torch`` — the kernel's plain PyTorch version (``--device cpu`` for the
-  CPU; by default on the card)
-- ``cpu``   — the hashlib loop, bit-identical to the Go reference miner
+- ``cuda``  — the hand-written Hopper kernels through the sweep pipeline
+- ``torch`` — their plain PyTorch versions (``--device cpu`` for the CPU;
+  by default on the card)
+- ``cpu``   — the host loop: the native C++ sweep for ``sha256d`` (the
+  hashlib loop where it does not build), a prefix-folded hashlib loop for
+  the other workloads
 - ``auto``  — ``cuda`` when a CUDA card is visible; without one it is a
   configuration error, never a silent CPU sweep
 
-Not ported yet: the watchdog tier ladder, ``--devices``, multihost,
-telemetry, throttling and workloads other than the default.
+``--workload sha256d|preimage|blake2b64`` (env ``BMT_WORKLOAD``) picks the
+hash family; it must match the server's.  ``--watchdog SECONDS`` wraps the
+search in a chain of the requested tier and the workload's host tiers below
+it (cuda → cpu → hashlib): a chunk that exceeds the tier's budget re-runs
+on the next tier, and every downgrade is counted and logged on stderr.  A
+``cuda`` tier that fails to build or launch fails the chunk; it is never
+replaced by the plain version.  ``--throttle-nps`` paces the sweep,
+``BMT_MINER_LOG`` logs each chunk's submit and completion, and SIGTERM
+drains: the chunks already received are finished and answered before the
+miner exits.
+
+Not ported yet: ``--telemetry``, ``--devices`` and ``--multihost``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import threading
+import time
 from typing import Callable, Optional, Tuple
 
 from .. import lsp
-from ..bitcoin.hash import min_hash_range
 from ..bitcoin.message import Message, MsgType
 from ..utils.platform import NoDeviceError
 
@@ -49,18 +63,28 @@ def _resolve_backend(backend: str, device) -> str:
     return "cuda"
 
 
-def make_search(backend: str = "auto", device=None) -> SearchFn:
-    """Build the blocking (data, lower, upper) -> (min_hash, nonce) search."""
-    backend = _resolve_backend(backend, device)
-    if backend == "cpu":
-        return min_hash_range
-    from ..ops.sweep import sweep_min_hash
+def _resolve_tier(backend: str, workload, device=None) -> str:
+    """Map ``--backend`` onto a workload's tier ladder: ``auto`` as
+    :func:`_resolve_backend` resolves it (cuda on a card, torch when the
+    CPU was asked for, an error otherwise); a named tier must be on the
+    ladder."""
+    tier = _resolve_backend(backend, device) if backend in BACKENDS else backend
+    if tier in workload.tiers:
+        return tier
+    raise ValueError(
+        f"workload {workload.name!r} has no {backend!r} tier "
+        f"(ladder: {'->'.join(workload.tiers)})"
+    )
 
-    def search(data: str, lower: int, upper: int) -> Tuple[int, int]:
-        r = sweep_min_hash(data, lower, upper, backend=backend, device=device)
-        return r.hash, r.nonce
 
-    return search
+def make_search(backend: str = "auto", device=None, workload=None) -> SearchFn:
+    """Build the blocking (data, lower, upper) -> (min_hash, nonce) search.
+    ``workload``: a registered workload (or its name); None is the
+    default ``sha256d``."""
+    from ..workloads import resolve
+
+    wl = resolve(workload)
+    return wl.make_search(_resolve_tier(backend, wl, device), device)
 
 
 class _PoolSearch:
@@ -86,7 +110,8 @@ class _PipelineSearch:
     back-to-back Requests cost zero device idle."""
 
     def __init__(
-        self, backend: str, device=None, host_lane_budget: Optional[int] = None
+        self, backend: str, device=None, host_lane_budget: Optional[int] = None,
+        workload=None,
     ) -> None:
         from concurrent.futures import Future
 
@@ -94,7 +119,8 @@ class _PipelineSearch:
 
         self._Future = Future
         self._p = SweepPipeline(
-            backend=backend, device=device, host_lane_budget=host_lane_budget
+            backend=backend, device=device, host_lane_budget=host_lane_budget,
+            workload=workload,
         )
 
     def submit(self, data: str, lower: int, upper: int):
@@ -116,24 +142,37 @@ class _PipelineSearch:
 
 
 def make_async_search(
-    backend: str = "auto", device=None, host_lane_budget: Optional[int] = None
+    backend: str = "auto", device=None, host_lane_budget: Optional[int] = None,
+    workload=None,
 ):
     """Build the async (submit -> Future of (hash, nonce)) search the miner
     serves Requests with: the cross-request SweepPipeline for the ``cuda``
-    and ``torch`` rungs, a single-worker pool for the hashlib ``cpu`` loop.
-    ``host_lane_budget``: see ``SweepPipeline`` (None = auto)."""
-    backend = _resolve_backend(backend, device)
-    if backend == "cpu":
-        return _PoolSearch(min_hash_range)
-    return _PipelineSearch(backend, device=device, host_lane_budget=host_lane_budget)
+    and ``torch`` rungs, a single-worker pool for the host tiers.
+    ``host_lane_budget``: see ``SweepPipeline`` (None = auto).
+    ``workload``: see :func:`make_search`."""
+    from ..workloads import resolve
+
+    wl = resolve(workload)
+    return wl.make_async_search(_resolve_tier(backend, wl, device), device,
+                                host_lane_budget=host_lane_budget)
 
 
-def run_miner(client: "lsp.Client", search, close_search: bool = True) -> bool:
+def run_miner(
+    client: "lsp.Client",
+    search,
+    close_search: bool = True,
+    drain: Optional[threading.Event] = None,
+) -> bool:
     """Join and serve Requests until the server connection dies (the
     reference miner's intended lifetime: exit on server loss).
     ``close_search=False`` keeps an externally-owned async search alive
     across calls.  Returns True if the exit was a (reconnect-worthy)
     connection loss, False if the search backend itself failed.
+
+    ``drain`` (the clean scale-down): once set, the loop finishes every
+    chunk already received, writes their Results and returns, so the only
+    chunks the scheduler re-assigns are ones this miner never answered.
+    The miner binary sets it from its SIGTERM handler.
 
     ``search`` is either a plain ``(data, lo, hi) -> (hash, nonce)``
     callable (wrapped in a one-worker pool) or an async object with
@@ -173,7 +212,22 @@ def run_miner(client: "lsp.Client", search, close_search: bool = True) -> bool:
     t.start()
     try:
         while True:
-            item = inflight.get()
+            if drain is None:
+                item = inflight.get()
+            elif drain.is_set():
+                try:
+                    # Draining: serve out what the reader already queued;
+                    # an empty queue means every received chunk is answered.
+                    item = inflight.get_nowait()
+                except _queue.Empty:
+                    return True
+            else:
+                try:
+                    # Armed but not set: poll, so a SIGTERM between chunks
+                    # is noticed without a Request arriving.
+                    item = inflight.get(timeout=0.25)
+                except _queue.Empty:
+                    continue
             if item is None:
                 return True
             fut, msg = item
@@ -209,6 +263,7 @@ def run_miner_resilient(
     backoff_cap: float = 8.0,
     first_client: Optional["lsp.Client"] = None,
     stop: Optional[threading.Event] = None,
+    drain: Optional[threading.Event] = None,
     sleep=None,
 ) -> None:
     """Self-healing miner lifetime: Join/serve until the server connection
@@ -217,15 +272,16 @@ def run_miner_resilient(
 
     ``max_retries`` bounds *consecutive* failed connect attempts — any
     successful reconnect resets the budget.  ``stop`` (an Event) ends the
-    lifetime at the next reconnect decision.  One async ``search`` is
-    reused across connections; plain callables are wrapped once.
+    lifetime at the next reconnect decision.  ``drain`` is forwarded to
+    :func:`run_miner`: once set, the current connection answers the chunks
+    it received and the lifetime ends (no reconnect).  One async
+    ``search`` is reused across connections; plain callables are wrapped
+    once.
     """
-    import time as _time
-
     from ..utils.retry import backoff_delay
 
-    sleep = _time.sleep if sleep is None else sleep
-    asearch = _PoolSearch(search) if not hasattr(search, "submit") else search
+    sleep = time.sleep if sleep is None else sleep
+    asearch = _async(search)
     client = first_client
     failures = 0
 
@@ -255,13 +311,15 @@ def run_miner_resilient(
                 failures = 0
             conn_lost = False
             try:
-                conn_lost = run_miner(client, asearch, close_search=False)
+                conn_lost = run_miner(client, asearch, close_search=False, drain=drain)
             finally:
                 try:
                     client.close()
                 except lsp.LspError:
                     pass
                 client = None
+            if drain is not None and drain.is_set():
+                return  # clean drain: received work answered; no rejoin
             if not conn_lost:
                 # The search backend failed, not the network: reconnecting
                 # would just churn join/fail forever against a live server.
@@ -275,6 +333,207 @@ def run_miner_resilient(
         asearch.close()
 
 
+class _TieredSearch:
+    """Watchdog-guarded fallback chain over the workload's tiers.
+
+    A wedged device runtime hangs the miner's search future forever; this
+    wrapper notices from the inside — a chunk exceeding the tier's wedge
+    budget — abandons that tier and re-runs the chunk on the next one, so
+    the miner degrades instead of stalling.  The chain holds one device
+    tier, the one asked for, then host tiers only (cpu → hashlib): no
+    fallback touches the card.  A host or ``torch`` tier that raises is
+    downgraded too; the ``cuda`` tier's errors (a kernel that fails to build
+    or launch) fail the chunk instead, so its kernels are never silently
+    replaced.  The first tier is built here, so a configuration error
+    raises at once.  The budget grows ``wedge_growth``× per downgrade: a
+    chunk sized for the card honestly takes far longer on a fallback, and a
+    flat budget would read slow-but-healthy as wedged.  Every downgrade is
+    counted (:attr:`downgrades`) and printed on stderr with the tier, the
+    reason and the count.  Chunks are served FIFO by one dispatcher thread
+    (which serialises the tiers' sweeps: the price of wedge detection; a
+    miner that wants the pipeline's overlap runs without ``--watchdog``).
+    """
+
+    #: Tiers whose errors fail the chunk rather than downgrade it.
+    _STRICT = ("cuda",)
+    _SHUTDOWN = object()
+
+    def __init__(self, tiers, wedge_seconds: float = 30.0,
+                 wedge_growth: float = 8.0) -> None:
+        import queue as _queue
+        from concurrent.futures import Future
+
+        self._Future = Future
+        self._chain = list(tiers)  # [(name, factory returning a search)]
+        self._idx = 0
+        self._wedge = wedge_seconds
+        self._growth = wedge_growth
+        self._downgrades = 0  # real downgrades only, not build-time skips
+        self._closing = False
+        self._jobs: "_queue.Queue" = _queue.Queue()
+        name, factory = self._chain[0]
+        self._active = _async(factory())
+        self._active_name: Optional[str] = name
+        # A daemon: close() must not block behind a wedged tier's job.
+        self._thread = threading.Thread(target=self._loop, name="tiered-search",
+                                        daemon=True)
+        self._thread.start()
+
+    def submit(self, data: str, lower: int, upper: int):
+        out = self._Future()
+        self._jobs.put((data, lower, upper, out))
+        return out
+
+    def close(self) -> None:
+        # Flag first: the dispatcher must see closing before the active
+        # tier's futures start failing, or it would "downgrade".
+        self._closing = True
+        self._jobs.put(self._SHUTDOWN)
+        if self._active is not None:
+            _swallow(self._active.close)
+
+    @property
+    def active_tier(self) -> Optional[str]:
+        return self._active_name
+
+    @property
+    def downgrades(self) -> int:
+        return self._downgrades
+
+    def _tier(self):
+        while self._active is None and self._idx < len(self._chain):
+            name, factory = self._chain[self._idx]
+            try:
+                self._active, self._active_name = _async(factory()), name
+            except Exception as e:
+                print(f"miner: tier {name!r} unavailable ({e!r}); skipping",
+                      file=sys.stderr, flush=True)
+                self._idx += 1
+        return self._active
+
+    def _downgrade(self, why: str) -> None:
+        self._downgrades += 1
+        nxt = self._chain[self._idx + 1][0] if self._idx + 1 < len(self._chain) else None
+        print(f"miner: tier {self._active_name!r} {why}; downgrading to {nxt!r} "
+              f"(downgrade {self._downgrades})", file=sys.stderr, flush=True)
+        dead = self._active
+        self._active, self._active_name = None, None
+        self._idx += 1
+        if dead is not None:
+            # close() may block on the wedged runtime: do it off to the side.
+            threading.Thread(target=_swallow, args=(dead.close,), daemon=True).start()
+
+    def _loop(self) -> None:
+        from concurrent.futures import TimeoutError as _FutTimeout
+
+        while True:
+            item = self._jobs.get()
+            if item is self._SHUTDOWN:
+                return
+            data, lo, hi, out = item
+            while True:
+                if self._closing:
+                    out.set_exception(RuntimeError("search closed"))
+                    break
+                tier = self._tier()
+                if tier is None:
+                    out.set_exception(RuntimeError("all search tiers wedged or failed"))
+                    break
+                budget = self._wedge * (self._growth ** self._downgrades)
+                try:
+                    out.set_result(tier.submit(data, lo, hi).result(timeout=budget))
+                    break
+                except _FutTimeout:
+                    if self._closing:
+                        out.set_exception(RuntimeError("search closed"))
+                        break
+                    self._downgrade(f"wedged (> {budget:g} s/chunk)")
+                except Exception as e:
+                    if self._closing:
+                        out.set_exception(RuntimeError("search closed"))
+                        break
+                    if self._active_name in self._STRICT:
+                        out.set_exception(e)
+                        break
+                    self._downgrade(f"failed ({e!r})")
+
+
+def _async(search):
+    """``search`` as an async search: plain callables get a one-worker pool."""
+    return search if hasattr(search, "submit") else _PoolSearch(search)
+
+
+def _swallow(fn) -> None:
+    try:
+        fn()
+    except Exception:
+        pass
+
+
+def make_tiered_search(backend: str = "auto", device=None,
+                       wedge_seconds: float = 30.0, workload=None) -> _TieredSearch:
+    """The self-healing search: the requested tier, then the host tiers of
+    the workload's ladder below it (cpu, hashlib last: pure Python cannot
+    wedge).  The one device tier runs on ``device``; a wedged card leaves
+    the chain for the host, never for another rung on the same card.
+    ``backend`` resolves as in :func:`make_async_search`; an unknown
+    workload or tier, or a first tier that cannot be built, raises."""
+    from ..workloads import resolve
+    from ..workloads.base import DEVICE_TIERS
+
+    wl = resolve(workload)
+    first = _resolve_tier(backend, wl, device)
+    below = wl.tiers[wl.tiers.index(first) + 1:]
+    tiers = [first, *(t for t in below if t not in DEVICE_TIERS)]
+
+    def factory(tier: str):
+        if tier == "hashlib":
+            return lambda: _PoolSearch(wl.min_range)
+        return lambda: make_async_search(tier, device if tier == first else None,
+                                         workload=wl)
+
+    return _TieredSearch([(t, factory(t)) for t in tiers], wedge_seconds=wedge_seconds)
+
+
+class _PacedSearch:
+    """``--throttle-nps``: sweep at a fixed nonces/s.  The sleep rides the
+    reader thread's submit, pacing the whole pipeline without a core."""
+
+    def __init__(self, inner, rate: float) -> None:
+        self._inner, self._rate = inner, rate
+
+    def submit(self, data: str, lower: int, upper: int):
+        time.sleep((upper - lower + 1) / self._rate)
+        return self._inner.submit(data, lower, upper)
+
+    def close(self) -> None:
+        self._inner.close()
+
+
+class _LoggedSearch:
+    """``BMT_MINER_LOG``: each chunk's submit and completion on stderr."""
+
+    def __init__(self, inner) -> None:
+        self._inner, self._t0 = inner, time.monotonic()
+
+    def submit(self, data: str, lower: int, upper: int):
+        t = time.monotonic() - self._t0
+        print(f"{t:9.3f} submit [{lower},{upper}] size={upper - lower + 1:.3e}",
+              file=sys.stderr, flush=True)
+        fut = self._inner.submit(data, lower, upper)
+
+        def done(_f) -> None:
+            now = time.monotonic() - self._t0
+            print(f"{now:9.3f} done   [{lower},{upper}] dt={now - t:.3f}",
+                  file=sys.stderr, flush=True)
+
+        fut.add_done_callback(done)
+        return fut
+
+    def close(self) -> None:
+        self._inner.close()
+
+
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
     if len(argv) < 2:
@@ -282,18 +541,38 @@ def main(argv=None) -> int:
         return 0
     parser = argparse.ArgumentParser(prog=argv[0], add_help=False)
     parser.add_argument("hostport")
-    parser.add_argument("--backend", choices=list(BACKENDS), default="auto")
+    # Checked by the search factories, so an unknown tier is a
+    # configuration error like an unknown workload.
+    parser.add_argument("--backend", default="auto")
     # None = the CUDA card; "cpu" is the explicit request for the CPU.
     parser.add_argument("--device", default=None)
     # --reconnect N bounds consecutive failed re-Join attempts after a lost
     # server conn (0 restores the reference's exit-on-loss lifetime).
     parser.add_argument("--reconnect", type=int, default=5)
+    # --watchdog SECONDS wraps the search in the workload's tier ladder
+    # with a per-chunk wedge budget.
+    parser.add_argument("--watchdog", type=float, default=None)
+    # Paced capacity: sweep at a fixed nonces/s (sleep-dominated).
+    parser.add_argument("--throttle-nps", type=float, default=0.0)
+    # The hash family; must match the server's (the wire never names it).
+    parser.add_argument("--workload", default=os.environ.get("BMT_WORKLOAD") or None)
     args = parser.parse_args(argv[1:])
     try:
-        search = make_async_search(args.backend, args.device)
+        from ..workloads import resolve as resolve_workload
+
+        workload = resolve_workload(args.workload)
+        if args.watchdog is not None:
+            search = make_tiered_search(args.backend, args.device,
+                                        wedge_seconds=args.watchdog, workload=workload)
+        else:
+            search = make_async_search(args.backend, args.device, workload=workload)
     except (ValueError, NoDeviceError) as e:
         print("Invalid miner configuration:", e)
         return 0
+    if args.throttle_nps > 0:
+        search = _PacedSearch(search, args.throttle_nps)
+    if os.environ.get("BMT_MINER_LOG"):
+        search = _LoggedSearch(search)
     host, _, port = args.hostport.rpartition(":")
     try:
         client = lsp.Client(host or "127.0.0.1", int(port))
@@ -301,21 +580,31 @@ def main(argv=None) -> int:
         search.close()
         print("Failed to join with server:", e)
         return 0
+    import signal
+
+    # Clean drain: SIGTERM only sets the event; the serve loop answers
+    # every chunk already received and returns.  Installing a handler needs
+    # the main thread (a caller running main() elsewhere keeps the default).
+    drain = threading.Event()
+    try:
+        signal.signal(signal.SIGTERM, lambda _s, _f: drain.set())
+    except ValueError:
+        pass
     try:
         if args.reconnect > 0:
             run_miner_resilient(
                 host or "127.0.0.1", int(port), search,
                 max_retries=args.reconnect, first_client=client,
+                stop=drain, drain=drain,
             )
         else:
-            run_miner(client, search)
+            run_miner(client, search, drain=drain)
     finally:
         try:
             client.close()
         except lsp.LspError:
             pass
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

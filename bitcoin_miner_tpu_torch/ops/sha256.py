@@ -6,8 +6,8 @@ the nonce's decimal digit count.  This module provides:
 
 - the round constants and a **pure-Python compression** used host-side to
   fold the constant message prefix (job data + space) into a *midstate*;
-- the **message layout** (``build_layout``): for job ``data`` and digit
-  count ``d`` the padded tail-block word template and the (word, shift)
+- the **message layout** (``build_layout``): for job ``data``, separator
+  and digit count ``d`` the padded tail-block word template and the (word, shift)
   position of every nonce digit byte; and the factored kernel's split of
   the low digits into outer groups and inner lanes (``factor_low_pos``,
   ``outer_patch_table``);
@@ -184,6 +184,8 @@ class MsgLayout:
     byte positions; ``digit_pos`` says how to OR each digit's ASCII byte in.
     """
 
+    family = "sha256"
+
     data_len: int
     digit_count: int
     midstate: Tuple[int, ...]  # 8 uint32
@@ -261,17 +263,22 @@ def outer_patch_table(
     return words, table
 
 
-def build_layout(data: bytes, digit_count: int) -> MsgLayout:
-    """Build the layout for messages ``data + b" " + <digit_count digits>``.
+def build_layout(data: bytes, digit_count: int, sep: bytes = b" ") -> MsgLayout:
+    """Build the layout for messages ``data + sep + <digit_count digits>``.
 
     Standard SHA-256 padding: message || 0x80 || zeros || 64-bit big-endian
     bit length, to a multiple of 64 bytes.  Blocks wholly inside the constant
-    prefix (data + space) are folded into the midstate host-side — for
+    prefix (data + separator) are folded into the midstate host-side — for
     long job data the device then hashes only the final block(s).
+
+    ``sep`` is the workload's separator (``b" "`` for ``sha256d``, ``b":"``
+    for ``preimage``).  Digit positions depend on the prefix length only,
+    so the kernels and ``resume_point`` take every separator unchanged; its
+    bytes ride the midstate and template operands.
     """
     if digit_count < 1 or digit_count > 20:  # uint64 max has 20 digits
         raise ValueError(f"digit_count out of range: {digit_count}")
-    prefix = data + b" "
+    prefix = data + sep
     c_len = len(prefix)
     msg_len = c_len + digit_count
     n_blocks = (msg_len + 9 + 63) // 64

@@ -1,7 +1,8 @@
 """Blockwise nonce-range sweep: decomposition + min-hash dispatches.
 
-Port of ``bitcoin_miner_tpu/ops/sweep.py`` for the sha256 family on one
-device.  Decomposition invariants (unchanged from the reference):
+Port of ``bitcoin_miner_tpu/ops/sweep.py`` for both kernel families
+(sha256 and blake2b) on one device.  Decomposition invariants (unchanged
+from the reference):
 
 - Nonces are grouped by decimal **digit count** ``d`` (the hashed string's
   length depends on it), then into **10^k-aligned chunks** so the high
@@ -11,13 +12,21 @@ device.  Decomposition invariants (unchanged from the reference):
   the lexicographic min of the big-endian ``(h0, h1)`` hash pair and the
   flat argmin lane, lowest-nonce tie-break.
 
+Workloads: ``workload=`` (a ``workloads`` registration; None is the
+default ``sha256d``) picks the message separator, the host fold of tiny
+digit classes and the kernel family (``_workload_knobs``).  Layouts carry
+their family, and ``_build_kernel`` dispatches on it.
+
 Rungs: ``cuda`` runs the hand-written kernels (ops/sha256_minhash.py and,
-with ``factored=True``, ops/sha256_minhash_factored.py) on a CUDA device;
-``torch`` runs their plain PyTorch versions on the given device (the CPU
-rung of the tests).  The factored rung splits a chunk's ``10^k`` lanes into
-``10^(k - k_in)`` outer digit groups of ``10^k_in`` inner lanes and
-computes each (row, group)'s round prefix once (``default_factor_k_in``).
-Not ported yet: the mesh and hot-plane rungs and the native C++ host tier.
+with ``factored=True``, ops/sha256_minhash_factored.py; for the blake2b
+family ops/blake2b_minhash.py) on a CUDA device; ``torch`` runs their plain
+PyTorch versions on the given device (the CPU rung of the tests).  The
+factored rung splits a chunk's ``10^k`` lanes into ``10^(k - k_in)`` outer
+digit groups of ``10^k_in`` inner lanes and computes each (row, group)'s
+round prefix once (``default_factor_k_in``).  Tiny digit classes fold on
+the host: the native C++ sweep for ``sha256d`` (hashlib where it does not
+build), the workload's cpu-tier loop otherwise.  Not ported yet: the mesh
+and hot-plane rungs.
 """
 
 from __future__ import annotations
@@ -33,6 +42,9 @@ import numpy as np
 import torch
 
 from ..utils.platform import resolve_device
+from .blake2b import blake2b_minhash_plain
+from .blake2b import build_layout as build_blake2b_layout
+from .blake2b_minhash import blake2b_minhash
 from .sha256 import MsgLayout, build_layout
 from .sha256_minhash import minhash, minhash_plain
 from .sha256_minhash_factored import minhash_factored, minhash_factored_plain
@@ -97,8 +109,35 @@ def decompose_range(lower: int, upper: int, max_k: int = 6) -> Iterator[ChunkGro
 
 
 @functools.lru_cache(maxsize=256)
-def _layout_cache(data: bytes, d: int) -> MsgLayout:
-    return build_layout(data, d)
+def _layout_cache(data: bytes, d: int, sep: bytes = b" ", family: str = "sha256"):
+    """The layout of one digit class, keyed on everything it depends on:
+    the separator and the family as well as the data and the digit count,
+    so two workloads' sweeps of one job never share a layout."""
+    if family == "blake2b":
+        return build_blake2b_layout(data, d, sep=sep)
+    return build_layout(data, d, sep=sep)
+
+
+def _workload_knobs(workload) -> Tuple[bytes, object, str]:
+    """``(separator, host fold, kernel family)`` of a workload (duck-typed:
+    ``.sep``, ``._cpu_search``, ``.native_ok``, ``.kernel_family``).  None
+    is the default ``sha256d``.  A workload with no message template cannot
+    run these sweeps: a configuration error, not a silent wrong answer."""
+    if workload is None:
+        from ..workloads import resolve
+
+        workload = resolve(None)
+    if getattr(workload, "sep", None) is None:
+        raise ValueError(
+            f"workload {getattr(workload, 'name', workload)!r} has no "
+            "device message template; its tier ladder has no device tier"
+        )
+    family = getattr(workload, "kernel_family", "sha256")
+    if getattr(workload, "native_ok", False):
+        return workload.sep, _host_min, family
+    # The workload's cpu-tier loop (prefix-folded), not its per-nonce
+    # oracle: host lanes sit on the hot path.
+    return workload.sep, workload._cpu_search(), family
 
 
 def _fill_templates(
@@ -150,6 +189,7 @@ def auto_tune(
     sieve: Optional[bool],
     device: torch.device,
     factored: Optional[bool] = None,
+    family: str = "sha256",
 ) -> Tuple[str, int, int, bool, bool]:
     """Resolve ``(backend, rows-per-dispatch, max_k, sieve, factored)`` for
     a device.
@@ -166,7 +206,17 @@ def auto_tune(
     benchmark's repeated pairs decide (PERF.md has single pairs only).  On
     ``torch`` because that rung is the tests' CPU rung, not a speed tier
     (the reference's xla tier defaults it ON for its own schedule-buffer
-    reason, which the plain version does not have)."""
+    reason, which the plain version does not have).
+
+    ``family="blake2b"`` (the ``blake2b64`` workload): the same rung shapes
+    (cuda batch 1024, max_k 6; torch batch 4, max_k 5), kept provisionally,
+    with the sieve OFF by default on both (h0 and h1 come out of one
+    output word, so there is no cheaper first pass).  ``factored=True``
+    on the cuda rung raises: the reference's grouped form exists for
+    XLA:CPU cache residency, and the kernel computes the same function in
+    one form; on the torch rung it runs the plain version's grouped form."""
+    if family not in ("sha256", "blake2b"):
+        raise ValueError(f"unknown kernel family {family!r} (sha256 or blake2b)")
     if backend is None:
         backend = "cuda" if device.type == "cuda" else "torch"
     if backend not in ("cuda", "torch"):
@@ -178,8 +228,13 @@ def auto_tune(
     if max_k is None:
         max_k = 6 if backend == "cuda" else 5
     if sieve is None:
-        sieve = backend == "cuda"
+        sieve = backend == "cuda" and family == "sha256"
     factored = bool(factored)
+    if factored and family == "blake2b" and backend == "cuda":
+        raise ValueError(
+            "the blake2b kernel has one form; factored=True exists only on "
+            "the torch rung (the plain version's grouped form)"
+        )
     if batch < 1 or max_k < 1:
         raise ValueError(f"batch ({batch}) and max_k ({max_k}) must be >= 1")
     if batch * 10**max_k > I32_MAX:
@@ -201,16 +256,21 @@ class HostFold:
 
 
 def _host_min(data: str, lo: int, hi: int) -> Tuple[int, int]:
-    """Host-tier ``(min hash, argmin nonce)`` over inclusive ``[lo, hi]``:
-    the hashlib oracle (the native C++ tier is not ported yet)."""
+    """Host-tier ``(min hash, argmin nonce)`` of the default workload over
+    inclusive ``[lo, hi]``: the native C++ sweep when it builds, else the
+    hashlib oracle."""
+    from .. import native
     from ..bitcoin.hash import min_hash_range
 
-    return min_hash_range(data, lo, hi)
+    return native.host_min_fn(min_hash_range)(data, lo, hi)
 
 
 def auto_host_lane_budget() -> int:
     """Largest digit-class size worth computing on the host instead of on
-    the device: ~0.1 s of hashlib work."""
+    the device: ~0.1 s of hashlib work.  The reference raises it to 10^7
+    with its native tier to skip compiling a device kernel per class; one
+    binary per family serves every class here, so that reason does not
+    apply."""
     return 10**5
 
 
@@ -225,8 +285,16 @@ def run_sweep_dispatches(
     consume,
     max_inflight: int = 32,
     host_lane_budget: int = 0,
+    sep: bytes = b" ",
+    host_min=None,
+    family: str = "sha256",
 ) -> int:
     """The decompose → template-fill → dispatch skeleton.
+
+    ``sep``/``host_min``/``family`` are the workload knobs
+    (:func:`_workload_knobs`; the defaults are ``sha256d``'s): the
+    separator in each digit class's layout, the host fold of host-routed
+    classes and the kernel family whose layout function runs.
 
     ``get_kernel(layout, group)`` returns the kernel for a shape class;
     ``run_kernel(kern, midstate, tail_const, bounds)`` queues one dispatch
@@ -240,17 +308,19 @@ def run_sweep_dispatches(
     queued.  Returns the number of lanes swept.
     """
     data_bytes = data.encode("utf-8")
+    if host_min is None:
+        host_min = _host_min
     pending: Deque[Tuple] = collections.deque()
     lanes = 0
     for group in decompose_range(lower, upper, max_k=max_k):
         if 10**group.d <= host_lane_budget:
             g_lo = group.chunks[0].base + group.chunks[0].lo_off
             g_hi = group.chunks[-1].base + group.chunks[-1].hi_off - 1
-            h, n = _host_min(data, g_lo, g_hi)
+            h, n = host_min(data, g_lo, g_hi)
             pending.append((HostFold(h, n), None, None))
             lanes += sum(c.hi_off - c.lo_off for c in group.chunks)
             continue
-        layout = _layout_cache(data_bytes, group.d)
+        layout = _layout_cache(data_bytes, group.d, sep, family)
         kern = get_kernel(layout, group)
         midstate = np.array(layout.midstate, dtype=np.uint32)
         for s in range(0, len(group.chunks), batch):
@@ -266,15 +336,22 @@ def run_sweep_dispatches(
     return lanes
 
 
-def _build_kernel(backend: str, layout: MsgLayout, group: ChunkGroup,
-                  factored: bool = False):
+def _build_kernel(backend: str, layout, group: ChunkGroup, factored: bool = False):
     """The kernel for one digit class: the CUDA wrapper or the plain
-    version, bound to the class's k low digit positions.  ``factored``
-    takes the factored kernel for classes with ``k >= 2`` (a 1-digit lane
-    axis has nothing to factor).  One binary serves every class, so
-    nothing is compiled per class."""
+    version of the layout's family, bound to the class's k low digit
+    positions.  ``factored`` takes the factored kernel (the plain version's
+    grouped form for blake2b) for classes with ``k >= 2`` (a 1-digit lane
+    axis has nothing to factor).  One binary per family serves every
+    class, so nothing is compiled per class."""
     low_pos = layout.digit_pos[layout.digit_count - group.k :]
     cuda = backend == "cuda"
+    if layout.family == "blake2b":
+        counters = dict(msg_len=layout.msg_len, tail_off=layout.tail_off)
+        if cuda:
+            return functools.partial(blake2b_minhash, low_pos=low_pos, **counters)
+        k_in = default_factor_k_in(group.k) if factored and group.k >= 2 else 0
+        return functools.partial(blake2b_minhash_plain, low_pos=low_pos, k=group.k,
+                                 k_in=k_in, **counters)
     if factored and group.k >= 2:
         fn = minhash_factored if cuda else minhash_factored_plain
         return functools.partial(fn, low_pos=low_pos,
@@ -299,9 +376,9 @@ def _invoke_kernel(kern, device, midstate, tail_const, bounds, thresh=None):
     ``[0, U32_MAX]`` — U32_MAX (everything survives) until the first
     candidate lands."""
     return kern(
-        midstate=_to_device(midstate, device),
-        tail=_to_device(tail_const, device),
-        bounds=_to_device(bounds, device),
+        _to_device(midstate, device),
+        _to_device(tail_const, device),
+        _to_device(bounds, device),
         thresh=thresh,
     )
 
@@ -358,16 +435,18 @@ class SweepPipeline:
         host_lane_budget: Optional[int] = None,
         sieve: Optional[bool] = None,
         factored: Optional[bool] = None,
+        workload=None,
     ) -> None:
         import queue as _queue
         import threading
         from concurrent.futures import Future
 
         self._Future = Future
+        self._sep, self._host_min, self._family = _workload_knobs(workload)
         self._device = resolve_device(device)
         (self._backend, self._batch, self._max_k, self._sieve,
          self._factored) = auto_tune(
-            backend, batch, max_k, sieve, self._device, factored
+            backend, batch, max_k, sieve, self._device, factored, self._family
         )
         self._host_lane_budget = (
             auto_host_lane_budget() if host_lane_budget is None
@@ -480,6 +559,9 @@ class SweepPipeline:
                     run_kernel,
                     consume,
                     host_lane_budget=self._host_lane_budget,
+                    sep=self._sep,
+                    host_min=self._host_min,
+                    family=self._family,
                 )
             except BaseException as e:  # resolve, don't kill the pipeline
                 self._fail(fut, e)
@@ -550,18 +632,23 @@ def sweep_min_hash(
     host_lane_budget: int = 0,
     sieve: Optional[bool] = None,
     factored: Optional[bool] = None,
+    workload=None,
 ) -> SweepResult:
     """Find ``(min Hash(data, n), argmin n)`` over inclusive ``[lower,
     upper]``.  Bit-exact vs the hashlib oracle
-    (``bitcoin_miner_tpu_torch.bitcoin.hash_nonce``); ties -> lowest nonce.
+    (``bitcoin_miner_tpu_torch.bitcoin.hash_nonce`` for the default,
+    ``workload.hash_nonce`` for a registered workload); ties -> lowest
+    nonce.
 
     ``device``: None is the CUDA card (raises without one); ``"cpu"`` runs
     the plain version.  ``backend``/``batch``/``max_k``/``sieve``/
-    ``factored``: see :func:`auto_tune`.
+    ``factored``: see :func:`auto_tune`.  ``workload``: see
+    :func:`_workload_knobs`.
     """
+    sep, host_min, family = _workload_knobs(workload)
     dev = resolve_device(device)
     backend, batch, max_k, sieve, factored = auto_tune(
-        backend, batch, max_k, sieve, dev, factored)
+        backend, batch, max_k, sieve, dev, factored, family)
     best: List[Tuple[int, int]] = []  # [(hash, nonce)] — current minimum
 
     def get_kernel(layout, group):
@@ -585,7 +672,7 @@ def sweep_min_hash(
 
     lanes = run_sweep_dispatches(
         data, lower, upper, max_k, batch, get_kernel, run_kernel, consume,
-        host_lane_budget=host_lane_budget,
+        host_lane_budget=host_lane_budget, sep=sep, host_min=host_min, family=family,
     )
     if not best:
         raise RuntimeError("sweep produced no candidates")

@@ -9,9 +9,10 @@ Phases (any failure ends the run non-zero, with no result line):
 
 1. environment — the card's name and power limit (nvidia-smi) and
    torch.cuda.get_device_name(0);
-2. build — both kernel sources in bitcoin_miner_tpu_torch/csrc, one nvcc
-   each, started together, for sm_90a, printing ``-Xptxas -v`` (registers,
-   spills) and the static SASS mix per kernel;
+2. build — the three kernel sources in bitcoin_miner_tpu_torch/csrc, one
+   nvcc each, and the native host sweep (g++), all started together, for
+   sm_90a, printing ``-Xptxas -v`` (registers, spills) and the static SASS
+   mix per kernel;
 3. kernel vs plain — the min-hash kernel against its plain PyTorch version
    on the card, bit-exact, over both sieve forms, 1 and 2 tail blocks, k 1
    to 6, partial-bound rows (bounds inside a run of 10 lanes too) and
@@ -25,23 +26,43 @@ Phases (any failure ends the run non-zero, with no result line):
    into the second; all in the second), partial bounds, a padding row and
    the thresholds; then at the main path's shape against phase 3's plain
    folds, and for the 56-character message against its own plain run;
-5. main path — the port miner's ``main`` (``--backend cuda``) in a thread,
+5. blake2b kernel vs plain — the BLAKE2b-64 kernel against its plain
+   version on the card, bit-exact, k 1 to 6, one and two tail blocks (data
+   of 6, 120 and 200 bytes, and 126 bytes with the low digits all in the
+   second block), bounds inside rows, a partial batch with a padding row,
+   the full fold and three thresholds; then at the main path's own shape
+   (1024 rows x 10^6 lanes) on the 6-, 120- and 126-byte layouts, and a
+   500-row partial batch;
+6. main path — the port miner's ``main`` (``--backend cuda``) in a thread,
    served by this script through the port's own LSP server with Requests of
    at most 1e9 nonces; every Result is checked against hashlib, the job's
    fold against a 5e8-nonce split, a Request across 1e9 against the
    ``min_hash_range`` oracle, and the kernel's launch count;
-6. factored path — ``SweepPipeline(backend="cuda", factored=True)`` over the
+7. workload paths — the same ``main`` with ``--workload blake2b64`` and with
+   ``--workload preimage``, Requests of 1e9 nonces on ``"cmu440"`` and a
+   two-block message: every Result checked against the workload's
+   ``hash_nonce``, the 1e9 and 5e8 splits' folds against each other, a
+   Request across 1e9 against ``min_range``, each kernel's launch count;
+8. watchdog drill — ``make_tiered_search("cuda", workload=blake2b64)`` with a
+   forced wedge of the first fetch: one logged, counted downgrade from cuda
+   to the host's cpu tier (never to the plain version on the card) and an
+   exact Result;
+9. factored path — ``SweepPipeline(backend="cuda", factored=True)`` over the
    same jobs plus the 56-character one in 1e9-nonce submits: every result
    checked against hashlib, every job's fold against the unfactored one,
    the Request across 1e9 against the oracle, and the factored kernel's
    launch count;
-7. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+10. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
    the plain versions' ms at that shape and the bound, nonces/s per 1e9
-   Request on both rungs as an interleaved same-seed pair, each beside the
-   card.
+   Request on both rungs as an interleaved same-seed pair; the BLAKE2b
+   kernel's ms per full dispatch (one and two tail blocks, on the operands
+   phase 5 held to the plain version), its bound and the plain version's
+   ms; nonces/s of the native host sweep and the host
+   fold of the first Request's d <= 5 classes with it and with hashlib;
+   each beside the card.
 
 Prints the kernels' JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Imports nothing of JAX.
@@ -65,6 +86,15 @@ REPLACES = "bitcoin_miner_tpu/ops/pallas_sha256.py:93"
 SOURCE = "bitcoin_miner_tpu_torch/csrc/sha256_minhash.cu"
 F_REPLACES = "bitcoin_miner_tpu/ops/pallas_sha256.py:536"
 F_SOURCE = "bitcoin_miner_tpu_torch/csrc/sha256_minhash_factored.cu"
+B_REPLACES = "bitcoin_miner_tpu/ops/blake2b.py::make_blake2b_kernel_body"
+B_SOURCE = "bitcoin_miner_tpu_torch/csrc/blake2b_minhash.cu"
+# BLAKE2b layouts at d = 10: 120 bytes + separator puts the low digits
+# across the 128-byte block boundary (two tail blocks, both per lane); 126
+# puts them all in the second (the first once per CUDA block); 200 folds
+# one prefix block into the midstate (one tail block).
+B2_TWO = ("Sphinx of black quartz, judge my vow! " * 4)[:120]
+B2_FB1 = ("Five quacking zephyrs jolt my wax bed. " * 4)[:126]
+B2_FOLDED = ("Jived fox nymph grabs quick waltz; " * 6)[:200]
 TWO_BLOCK_DATA = "The quick brown fox jumps over the lazy dog again!"  # 50 chars
 # At d = 10, k = 6, k_in = 3: the inner digits straddle tail blocks 1 and 2
 # (54 chars), or all lie in block 2, so block 1 is per-group work (56 chars).
@@ -85,9 +115,10 @@ def smi(query: str) -> str:
 
 
 def kernel_label(mangled: str):
-    """``minhash_kernel<NB, sieve>`` / ``factored_kernel<NB, FIB, sieve>``
-    for a mangled kernel name, else None."""
-    t = re.search(r"(minhash_kernel|factored_kernel)ILi(\d)E(?:Li(\d)E)?Lb([01])E", mangled)
+    """``minhash_kernel<NB, FB, sieve>`` / ``factored_kernel<NB, FIB, sieve>``
+    / ``blake2b_kernel<NB, FB, sieve>`` for a mangled kernel name, else None."""
+    t = re.search(r"(minhash_kernel|factored_kernel|blake2b_kernel)ILi(\d)E(?:Li(\d)E)?Lb([01])E",
+                  mangled)
     if not t:
         return None
     args = [t.group(2)] + ([t.group(3)] if t.group(3) else [])
@@ -151,11 +182,17 @@ class Smoke:
         self.failures = []
         self.k_stats = {}
         self.f_stats = {}  # the factored kernel's
+        self.b_stats = {}  # the BLAKE2b kernel's
+        # message -> (operands, counters, plain result, plain ms) of a BLAKE2b
+        # full dispatch (MAIN_B rows x 10^MAIN_K lanes)
+        self.b_full = {}
+        self.w_rates = {}  # workload -> [(data, lo, hi, nonces/s)] per Request
         self.plain_ms = {}  # job data -> ms of the plain version on its full dispatch
         # message -> (n_tb, operands, plain result, plain ms or None) of a
         # full dispatch that both kernels are timed on
         self.full_disp = {}
         self.folds = {}  # job data -> the unfactored main path's fold
+        self.native = {}  # the native host sweep's numbers
 
     # ------------------------------------------------------------ helpers
 
@@ -209,6 +246,7 @@ class Smoke:
             f"devices {torch.cuda.device_count()} python {sys.version.split()[0]}")
 
     def phase_build(self) -> None:
+        from bitcoin_miner_tpu_torch import native
         from bitcoin_miner_tpu_torch.ops import _build
 
         t0 = time.monotonic()
@@ -216,22 +254,28 @@ class Smoke:
 
         def one(name):
             try:
-                paths[name] = _build.build(name, verbose=True)
-            except Exception as e:  # re-raised below, after both joined
+                paths[name] = (native.build() if name == "native"
+                               else _build.build(name, verbose=True))
+            except Exception as e:  # re-raised below, after all joined
                 errors.append(e)
 
         threads = [threading.Thread(target=one, args=(n,))
-                   for n in ("sha256_minhash", "sha256_minhash_factored")]
+                   for n in ("sha256_minhash", "sha256_minhash_factored", "blake2b_minhash",
+                             "native")]
         for t in threads:
             t.start()
         for t in threads:
             t.join()
         if errors:
             raise errors[0]
+        if not native.available():
+            raise AssertionError("the native host sweep did not load")
         log(f"built {sorted(os.path.relpath(p, ROOT) for p in paths.values())} "
-            f"in {time.monotonic() - t0:.1f} s (in parallel)")
+            f"in {time.monotonic() - t0:.1f} s (in parallel); SHA-NI on this host: "
+            f"{native.have_shani()}")
         for name, stats in (("sha256_minhash", self.k_stats),
-                            ("sha256_minhash_factored", self.f_stats)):
+                            ("sha256_minhash_factored", self.f_stats),
+                            ("blake2b_minhash", self.b_stats)):
             stats["sass"] = sass_mix(paths[name], _build.nvcc_path())
             stats["ptxas"] = ptxas_stats(paths[name].with_suffix(".log").read_text())
             for kern, mix in stats["sass"].items():
@@ -423,25 +467,129 @@ class Smoke:
         self.f_stats["max_abs_err"] = max_err
         log(f"factored kernel == plain, bit-exact, in {n_cases} cases (tolerance 0)")
 
-    def phase_main_path(self) -> None:
+    def b_operands(self, data: str, d: int, k: int, rows, n_rows: int):
+        """Device operands of one BLAKE2b dispatch: rows = [(high_base_nonce,
+        lo, hi)], then padding rows up to n_rows.  Returns (operands, the
+        blocks' counters, chunks)."""
+        from bitcoin_miner_tpu_torch.ops import blake2b
+        from bitcoin_miner_tpu_torch.ops.sweep import Chunk, ChunkGroup, _fill_templates
+        import numpy as np
+
+        torch = self.torch
+        lay = blake2b.build_layout(data.encode(), d)
+        chunks = [Chunk(base=b, lo_off=lo, hi_off=hi) for b, lo, hi in rows]
+        group = ChunkGroup(d=d, k=k, chunks=tuple(chunks))
+        tail, bounds = _fill_templates(lay, group, chunks, n_rows)
+        ops = dict(
+            midstate=torch.from_numpy(np.array(lay.midstate, dtype=np.uint32)).to(self.dev),
+            tail=torch.from_numpy(tail).to(self.dev),
+            bounds=torch.from_numpy(bounds).to(self.dev),
+            low_pos=lay.digit_pos[d - k:],
+        )
+        return ops, dict(msg_len=lay.msg_len, tail_off=lay.tail_off), chunks
+
+    @staticmethod
+    def b_plain(ops, counters, thresh=None):
+        from bitcoin_miner_tpu_torch.ops.blake2b import blake2b_minhash_plain
+
+        return blake2b_minhash_plain(
+            ops["midstate"], ops["tail"], ops["bounds"], thresh, low_pos=ops["low_pos"],
+            k=len(ops["low_pos"]), **counters).tolist()
+
+    @staticmethod
+    def thresholds(h0: int):
+        """The full fold and the sieve at U32_MAX, at the min h0 (the tie
+        survives) and below it (no uint32 lies below 0)."""
+        out = [("full", None), ("sieve U32_MAX", U32_MAX), ("sieve thresh == min h0", h0)]
+        return out + ([("sieve thresh < min h0", h0 - 1)] if h0 > 0 else [])
+
+    def phase_blake2b_compare(self) -> None:
+        from bitcoin_miner_tpu_torch import workloads
+        from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import sieved
+
+        torch = self.torch
+        w = workloads.get("blake2b64")
+        max_err = n_cases = 0
+
+        def check(label, got, want):
+            nonlocal max_err, n_cases
+            n_cases += 1
+            err = max(abs(a - b) for a, b in zip(got, want))
+            max_err = max(max_err, err)
+            log(f"  {label}: kernel {got} plain {want} {'OK' if not err else 'MISMATCH'}")
+            if err:
+                raise AssertionError(f"blake2b kernel != plain ({label})")
+
+        def held(data, chunks, span, ref):
+            nonce = chunks[ref[2] // span].base + ref[2] % span
+            if ((ref[0] << 32) | ref[1]) != w.hash_nonce(data, nonce):
+                raise AssertionError(f"plain min disagrees with hashlib at {nonce}")
+
+        d = 10
+        for data in ("cmu440", B2_TWO, B2_FOLDED, B2_FB1):
+            for k in (1, 2, 3, 4, 5, 6):
+                span = 10**k
+                hb = 10 ** (d - 1) // span + 7
+                rows = [(hb * span, 0, span),                               # full row
+                        ((hb + 3) * span, span // 7 + 3, span - span // 9 - 1),
+                        ((hb + 9) * span, span // 2 + 1, span // 2 + span // 50 + 3)]
+                ops, counters, chunks = self.b_operands(data, d, k, rows, 4)  # + padding
+                ref = self.b_plain(ops, counters)
+                held(data, chunks, span, ref)
+                for label, th in self.thresholds(ref[0]):
+                    got = blake2b_minhash(**ops, thresh=th, **counters).tolist()
+                    check(f"{len(data)}-byte data n_tb={len(ops['tail'][0]) // 32} k={k} {label}",
+                          got, list(sieved(ref, th)))
+        # The main path's own dispatches: B=1024 rows x 10^6 lanes at d=10
+        # on the three layouts (one tail block; two, the digits straddling
+        # them; two, the digits all in the second), and the partial batch of
+        # a 5e8-nonce Request (500 rows, then padding).
+        for data, n_valid in (("cmu440", MAIN_B), (B2_TWO, MAIN_B), (B2_FB1, MAIN_B),
+                              ("cmu440", 500)):
+            rows = [((10**3 + r) * 10**MAIN_K, 0, 10**MAIN_K) for r in range(n_valid)]
+            ops, counters, chunks = self.b_operands(data, 10, MAIN_K, rows, MAIN_B)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = self.b_plain(ops, counters)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            held(data, chunks, 10**MAIN_K, ref)
+            for label, th in self.thresholds(ref[0]):
+                got = blake2b_minhash(**ops, thresh=th, **counters).tolist()
+                check(f"main-path dispatch {n_valid} of {MAIN_B} rows x 1e{MAIN_K}, "
+                      f"{len(data)}-byte data {label}", got, list(sieved(ref, th)))
+            log(f"  plain version {plain_ms:.1f} ms for {n_valid}e{MAIN_K} lanes, "
+                f"{len(data)}-byte data [{self.card}]")
+            if n_valid == MAIN_B:
+                self.b_full[data] = (ops, counters, ref, plain_ms)
+        self.b_stats["max_abs_err"] = max_err
+        log(f"blake2b kernel == plain, bit-exact, in {n_cases} cases (tolerance 0)")
+
+    def drive_miner(self, argv, jobs, hash_fn, range_fn, kernels):
+        """Run the port miner's ``main`` with ``argv`` in a thread against
+        this script's own LSP server.  Each job ``(data, hi)`` is served as
+        Requests of 1e9 nonces, then again as pipelined Requests of 5e8, and
+        the two folds must agree; then one Request across 1e9 (``"cmu440"``)
+        against ``range_fn``.  Every Result is held to ``hash_fn``.  The
+        launch counts of ``kernels`` (wrappers) are set to 0 just before the
+        miner starts and read just after it stops.  Returns ``(folds,
+        rates, launches)``."""
         from bitcoin_miner_tpu_torch import lsp
         from bitcoin_miner_tpu_torch.apps import miner
-        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
         from bitcoin_miner_tpu_torch.bitcoin.message import Message, MsgType
-        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
-        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
 
         server = lsp.Server(0)
         port = server.port
         rc = {}
         t = threading.Thread(
             target=lambda: rc.setdefault("rc", miner.main(
-                ["miner", f"127.0.0.1:{port}", "--backend", "cuda", "--reconnect", "0"])),
+                ["miner", f"127.0.0.1:{port}", *argv, "--reconnect", "0"])),
             name="port-miner", daemon=True,
         )
-        # Counts from here on are the main path's.
-        minhash.launches = minhash_factored.launches = 0
+        for k in kernels:
+            k.launches = 0  # counts from here on are this path's
         t.start()
+        folds, rates = {}, []
         try:
             conn, payload = server.read()
             msg = Message.unmarshal(payload)
@@ -450,7 +598,7 @@ class Smoke:
 
             def serve(data, ranges, pipelined):
                 """Send Requests, read Results FIFO; returns [(lo, hi, hash,
-                nonce, seconds)] with each Result checked against hashlib."""
+                nonce, seconds)] with each Result checked against hash_fn."""
                 out = []
                 if pipelined:
                     t0 = time.monotonic()
@@ -468,7 +616,7 @@ class Smoke:
                     dt = time.monotonic() - t0
                     if pipelined:
                         t0 = time.monotonic()
-                    if not lo <= r.nonce <= hi or r.hash != hash_nonce(data, r.nonce):
+                    if not lo <= r.nonce <= hi or r.hash != hash_fn(data, r.nonce):
                         raise AssertionError(f"bad Result {r} for [{lo}, {hi}]")
                     out.append((lo, hi, r.hash, r.nonce, dt))
                     log(f"  Request {data[:12]!r}[{lo}, {hi}] -> ({r.hash}, {r.nonce}) "
@@ -478,8 +626,7 @@ class Smoke:
             def split(lo, hi, size):
                 return [(a, min(a + size - 1, hi)) for a in range(lo, hi + 1, size)]
 
-            rates = []
-            for data, hi in (("cmu440", 3_999_999_999), (TWO_BLOCK_DATA, 999_999_999)):
+            for data, hi in jobs:
                 coarse = serve(data, split(0, hi, 10**9), pipelined=False)
                 fine = serve(data, split(0, hi, 5 * 10**8), pipelined=True)
                 fold = min((h, n) for _lo, _hi, h, n, _dt in coarse)
@@ -487,27 +634,104 @@ class Smoke:
                 if fold != fold2:
                     raise AssertionError(f"{data!r}: 1e9 split {fold} != 5e8 split {fold2}")
                 log(f"job {data!r} [0, {hi}]: fold {fold} equal over both splits")
-                self.folds[data] = fold
+                folds[data] = fold
                 rates += [(data, lo, h, (h - lo + 1) / dt) for lo, h, _x, _n, dt in coarse]
             lo, hi = 999_900_000, 1_000_099_999
             (r,) = serve("cmu440", [(lo, hi)], pipelined=False)
-            want = min_hash_range("cmu440", lo, hi)
+            want = range_fn("cmu440", lo, hi)
             if (r[2], r[3]) != want:
                 raise AssertionError(f"[{lo}, {hi}]: miner {r[2:4]} != oracle {want}")
-            log(f"Request across 1e9 equals the min_hash_range oracle: {want}")
-            self.k_stats["launches"] = minhash.launches
-            self.k_stats["rates"] = rates
-            log(f"main path launched the kernel {minhash.launches} times "
-                f"(the factored kernel {minhash_factored.launches} times)")
-            if minhash.launches <= 0:
-                raise AssertionError("the main path never launched the kernel")
+            log(f"Request across 1e9 equals the oracle's min over the range: {want}")
         finally:
             server.close()
             t.join(timeout=60)
-            if t.is_alive():
-                raise AssertionError("the miner thread did not exit")
+        launches = {k.__name__: k.launches for k in kernels}
+        if t.is_alive():
+            raise AssertionError("the miner thread did not exit")
         if rc.get("rc") != 0:
             raise AssertionError(f"miner main returned {rc.get('rc')}")
+        return folds, rates, launches
+
+    def phase_main_path(self) -> None:
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
+        from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
+
+        folds, rates, launches = self.drive_miner(
+            ["--backend", "cuda"],
+            [("cmu440", 3_999_999_999), (TWO_BLOCK_DATA, 999_999_999)],
+            hash_nonce, min_hash_range, (minhash, minhash_factored, blake2b_minhash))
+        self.folds.update(folds)
+        self.k_stats["launches"] = launches["minhash"]
+        self.k_stats["rates"] = rates
+        log(f"main path launched the kernel {launches['minhash']} times "
+            f"(the factored kernel {launches['minhash_factored']}, the BLAKE2b kernel "
+            f"{launches['blake2b_minhash']})")
+        if launches["minhash"] <= 0:
+            raise AssertionError("the main path never launched the kernel")
+
+    def phase_workload_paths(self) -> None:
+        from bitcoin_miner_tpu_torch import workloads
+        from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
+
+        kernels = (minhash, minhash_factored, blake2b_minhash)
+        for name, two_block, kernel in (("blake2b64", B2_TWO, "blake2b_minhash"),
+                                        ("preimage", TWO_BLOCK_DATA, "minhash")):
+            w = workloads.get(name)
+            log(f"-- workload {name}")
+            _folds, rates, launches = self.drive_miner(
+                ["--backend", "cuda", "--workload", name],
+                [("cmu440", 1_999_999_999), (two_block, 999_999_999)],
+                w.hash_nonce, w.min_range, kernels)
+            self.w_rates[name] = rates
+            log(f"workload {name}: launches {launches}")
+            if launches[kernel] <= 0:
+                raise AssertionError(f"the {name} path never launched {kernel}")
+            if name == "blake2b64":
+                self.b_stats["launches"] = launches[kernel]
+            else:
+                self.k_stats["launches_preimage"] = launches[kernel]
+
+    def phase_watchdog(self) -> None:
+        import io
+
+        from bitcoin_miner_tpu_torch import workloads
+        from bitcoin_miner_tpu_torch.apps import miner
+        from bitcoin_miner_tpu_torch.ops import sweep
+
+        class Tee(io.StringIO):
+            def write(self, text):
+                sys.__stderr__.write(text)
+                return super().write(text)
+
+        w = workloads.get("blake2b64")
+        lo, hi = 10**6, 10**6 + 99_999
+        os.environ["BMT_WEDGE_DISPATCH"] = "1"
+        sweep._WEDGE_STATE["fired"] = False
+        err = Tee()
+        old_err, sys.stderr = sys.stderr, err
+        try:
+            ts = miner.make_tiered_search("cuda", wedge_seconds=5.0, workload=w)
+            try:
+                got = ts.submit("cmu440", lo, hi).result(timeout=120)
+                tier, downgrades = ts.active_tier, ts.downgrades
+            finally:
+                ts.close()
+        finally:
+            sys.stderr = old_err
+            del os.environ["BMT_WEDGE_DISPATCH"]
+        lines = [ln for ln in err.getvalue().splitlines() if "downgrading" in ln]
+        want = w.min_range("cmu440", lo, hi)
+        log(f"watchdog drill: result {got}, oracle {want}, active tier {tier!r}, "
+            f"downgrades {downgrades}, logged {lines}")
+        if got != want or tier != "cpu" or downgrades != 1 or len(lines) != 1 \
+                or "'cuda'" not in lines[0] or "to 'cpu'" not in lines[0] \
+                or not sweep._WEDGE_STATE["fired"]:
+            raise AssertionError("the watchdog drill did not downgrade cuda -> cpu once, "
+                                 "logged, with an exact Result")
 
     def phase_factored_path(self) -> None:
         from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
@@ -658,6 +882,87 @@ class Smoke:
             per_message={d[:12]: v for d, v in per_msg.items()}, sm_clock_mhz=clock_mhz,
         )
         self.f_stats["request_pair"] = self.request_pair()
+        self.blake2b_numbers(clock_mhz)
+        self.native_numbers()
+
+    def blake2b_numbers(self, clock_mhz: float) -> None:
+        """The BLAKE2b kernel per full dispatch (MAIN_B rows x 10^MAIN_K
+        lanes, the operands the plain version ran on), its bound, and
+        nonces/s per 1e9 Request of both workload paths."""
+        from bitcoin_miner_tpu_torch.ops.blake2b import bound_seconds, lane_ops
+        from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import lanes_valid, sieved
+
+        per = {}
+        for data, (ops, counters, ref, plain_ms) in self.b_full.items():
+            ntb = ops["tail"].shape[1] // 32
+            # Every timed call's output is held to the plain fold.
+            ms, got = self.time_kernel(lambda: blake2b_minhash(**ops, **counters), reps=5, warm=1)
+            ms_sieve, got_s = self.time_kernel(
+                lambda: blake2b_minhash(**ops, thresh=ref[0], **counters), reps=5, warm=1)
+            if got != ref or got_s != list(sieved(ref, ref[0])):
+                raise AssertionError(f"timed BLAKE2b dispatch {got}/{got_s} != plain {ref}")
+            lanes = lanes_valid(ops["bounds"], MAIN_K)
+            bound = bound_seconds(lanes, ops["low_pos"], ntb, clock_mhz * 1e6) * 1e3
+            per[f"{len(data)}-byte"] = dict(
+                n_tb=ntb, ms=ms, ms_sieve_steady=ms_sieve, bound_ms=bound,
+                share_of_bound=bound / ms, lane_ops=lane_ops(ops["low_pos"], ntb),
+                plain_ms=plain_ms)
+            log(f"BLAKE2b full dispatch B={MAIN_B} x 1e{MAIN_K}, {len(data)}-byte data "
+                f"n_tb={ntb}: full fold {ms:.3f} ms, sieve (steady threshold) {ms_sieve:.3f} "
+                f"ms; bound {bound:.3f} ms ({100 * bound / ms:.1f}%) at {clock_mhz:.0f} MHz, "
+                f"lane ops {lane_ops(ops['low_pos'], ntb)}; plain {plain_ms:.1f} ms; "
+                f"{lanes / ms * 1e3:.3e} nonces/s [{self.card}]")
+        one = per["6-byte"]
+        self.b_stats.update(
+            ms=one["ms"], plain_ms=one["plain_ms"], bound_ms=one["bound_ms"],
+            shape=(f"B={MAIN_B} x 1e{MAIN_K} lanes, d=10, 6-byte data, n_tb=1, full fold "
+                   f"(the rung's default)"),
+            per_message=per, sm_clock_mhz=clock_mhz,
+            request_rates={name: [r for _d, _lo, _hi, r in rates]
+                           for name, rates in self.w_rates.items()},
+        )
+        for name, rates in self.w_rates.items():
+            for data, lo, hi, rate in rates:
+                log(f"nonces/s per Request, {name} {data[:12]!r}[{lo}, {hi}]: {rate:,.0f} "
+                    f"[{self.card}]")
+
+    def native_numbers(self) -> None:
+        """The native host sweep's nonces/s, and the host fold of a first
+        Request's d <= 5 classes with it and with hashlib; the d = 6 class
+        folded natively against its one device dispatch."""
+        from bitcoin_miner_tpu_torch import native
+        from bitcoin_miner_tpu_torch.bitcoin.hash import min_hash_range
+        from bitcoin_miner_tpu_torch.ops.sweep import decompose_range, sweep_min_hash
+
+        t0 = time.perf_counter()
+        native.min_hash_range_native("cmu440", 10**9, 10**9 + 2 * 10**7 - 1)
+        rate = 2 * 10**7 / (time.perf_counter() - t0)
+        classes = [(g.chunks[0].base + g.chunks[0].lo_off, g.chunks[-1].base + g.chunks[-1].hi_off - 1)
+                   for g in decompose_range(0, 99_999, MAIN_K)]
+        times, folds = {}, {}
+        for name, fn in (("native", native.min_hash_range_native), ("hashlib", min_hash_range)):
+            t0 = time.perf_counter()
+            folds[name] = [fn("cmu440", lo, hi) for lo, hi in classes]
+            times[name] = (time.perf_counter() - t0) * 1e3
+        if folds["native"] != folds["hashlib"]:
+            raise AssertionError("native and hashlib host folds disagree")
+        t0 = time.perf_counter()
+        nat6 = native.min_hash_range_native("cmu440", 10**5, 10**6 - 1)
+        nat6_ms = (time.perf_counter() - t0) * 1e3
+        sweep_min_hash("cmu440", 10**5, 10**5 + 9, device=self.dev)  # warm
+        t0 = time.perf_counter()
+        r = sweep_min_hash("cmu440", 10**5, 10**6 - 1, device=self.dev)
+        dev6_ms = (time.perf_counter() - t0) * 1e3
+        if (r.hash, r.nonce) != nat6:
+            raise AssertionError("the d = 6 class: device and native folds disagree")
+        self.native = dict(nonces_per_s=rate, shani=native.have_shani(),
+                           host_fold_d_le_5_ms=times, d6_native_ms=nat6_ms, d6_device_ms=dev6_ms,
+                           host_cores=os.cpu_count())
+        log(f"native host sweep: {rate:,.0f} nonces/s on {os.cpu_count()} cores, SHA-NI "
+            f"{native.have_shani()}; first Request's host fold of d <= 5 (1e5 nonces): "
+            f"native {times['native']:.1f} ms, hashlib {times['hashlib']:.1f} ms; d = 6 class "
+            f"(9e5 nonces): native {nat6_ms:.1f} ms, one device dispatch {dev6_ms:.1f} ms")
 
     def request_pair(self) -> dict:
         """nonces/s per 1e9-nonce Request on both rungs: the same Requests
@@ -700,7 +1005,10 @@ class Smoke:
             ("build", self.phase_build),
             ("kernel vs plain", self.phase_compare),
             ("factored kernel vs plain", self.phase_factored_compare),
+            ("blake2b kernel vs plain", self.phase_blake2b_compare),
             ("main path", self.phase_main_path),
+            ("workload paths", self.phase_workload_paths),
+            ("watchdog drill", self.phase_watchdog),
             ("factored path", self.phase_factored_path),
             ("numbers", self.phase_numbers),
         ]
@@ -719,7 +1027,7 @@ class Smoke:
         if self.failures:
             log(f"FAILED phases: {self.failures}")
             return 1
-        s, f = self.k_stats, self.f_stats
+        s, f, b = self.k_stats, self.f_stats, self.b_stats
         common = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms")
         line = {"kernels": [{
             "name": "sha256_minhash",
@@ -746,7 +1054,18 @@ class Smoke:
             "library_ms": None,
             **{key: f[key] for key in (
                 "shape", "per_message", "request_pair", "sm_clock_mhz", "sass", "ptxas")},
-        }]}
+        }, {
+            "name": "blake2b_minhash",
+            "route": "cuda",
+            "source": B_SOURCE,
+            "replaces": B_REPLACES,
+            **{key: b[key] for key in common},
+            "bound_by": "operations",
+            "library_ms": None,
+            **{key: b[key] for key in (
+                "shape", "per_message", "request_rates", "sm_clock_mhz",
+                "sass", "ptxas")},
+        }], "launches_preimage_path": s["launches_preimage"], "native": self.native}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch

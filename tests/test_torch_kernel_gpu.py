@@ -1,5 +1,9 @@
 """The CUDA min-hash kernels against their plain PyTorch versions, on the card.
 
+The SHA-256 kernels (main and factored) and the BLAKE2b-64 kernel, each
+held to its plain version on the same operands; and the cuda rung's sweeps
+of each workload held to the workload's oracle.
+
 Marked ``gpu``: without a CUDA card each test skips with a reason.  This
 file imports only the port (no JAX), so it also runs on a machine without
 JAX; there the JAX-bound ``tests/conftest.py`` is skipped:
@@ -13,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from bitcoin_miner_tpu_torch import workloads
 from bitcoin_miner_tpu_torch.bitcoin.hash import min_hash_range
-from bitcoin_miner_tpu_torch.ops import sweep
+from bitcoin_miner_tpu_torch.ops import blake2b, sweep
+from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
 from bitcoin_miner_tpu_torch.ops.sha256 import build_layout
 from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
     I32_MAX,
@@ -170,3 +176,73 @@ def test_sweep_factored_cuda_matches_oracle(cuda_device):
                              factored=True)
     assert (r.hash, r.nonce) == min_hash_range("cmu440", 999_990, 1_000_020)
     assert minhash_factored.launches > n0
+
+
+# (data, d, k, batch): one tail block (the prefix folded into the midstate
+# or not); two with the low digits straddling them; two with the low digits
+# all in the second (its first block once per CUDA block); k 1 to 6.
+BLAKE2B_LAYOUTS = [
+    ("cmu440", 10, 6, 4), ("cmu440", 7, 1, 3), ("cmu440", 10, 3, 2),
+    ("y" * 200, 10, 5, 4), ("x" * 120, 10, 6, 3), ("x" * 120, 8, 2, 4),
+    ("z" * 126, 10, 6, 4), ("z" * 126, 10, 4, 3),
+]
+
+
+def _blake2b_operands(data: str, d: int, k: int, batch: int, seed: int, device):
+    """One BLAKE2b dispatch with random high digits, bounds inside rows and
+    a padding row, made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    lay = blake2b.build_layout(data.encode(), d)
+    span = 10**k
+    chunks = []
+    for _ in range(batch - 1):
+        high = int(rng.integers(10 ** (d - k - 1), 10 ** (d - k)))
+        lo = int(rng.integers(0, span // 2))
+        chunks.append(sweep.Chunk(high * span, lo, int(rng.integers(lo + 1, span + 1))))
+    group = sweep.ChunkGroup(d=d, k=k, chunks=tuple(chunks))
+    tail, bounds = sweep._fill_templates(lay, group, chunks, batch)
+    ops = dict(
+        midstate=torch.tensor(lay.midstate, dtype=torch.int64).to(torch.uint32).to(device),
+        tail=torch.from_numpy(tail).to(device),
+        bounds=torch.from_numpy(bounds).to(device),
+        low_pos=lay.digit_pos[d - k :],
+    )
+    return ops, dict(msg_len=lay.msg_len, tail_off=lay.tail_off)
+
+
+def _blake2b_plain(ops, counters, thresh=None):
+    return blake2b.blake2b_minhash_plain(
+        ops["midstate"], ops["tail"], ops["bounds"], thresh, low_pos=ops["low_pos"],
+        k=len(ops["low_pos"]), **counters).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,d,k,batch", BLAKE2B_LAYOUTS)
+@pytest.mark.parametrize("sieve", [False, True])
+def test_blake2b_kernel_matches_plain_on_card(cuda_device, data, d, k, batch, sieve):
+    ops, counters = _blake2b_operands(data, d, k, batch, seed=d + k, device=cuda_device)
+    full = _blake2b_plain(ops, counters)
+    assert full[2] != I32_MAX
+    ths = [U32_MAX, full[0], full[0] - 1] if sieve else [None]
+    for th in ths:
+        got = blake2b_minhash(**ops, thresh=th, **counters)
+        torch.cuda.synchronize()
+        assert got.tolist() == _blake2b_plain(ops, counters, th), th
+
+
+@pytest.mark.gpu
+def test_blake2b_kernel_padding_only_dispatch(cuda_device):
+    ops, counters = _blake2b_operands("cmu440", 10, 6, 2, seed=0, device=cuda_device)
+    ops["bounds"].zero_()
+    assert blake2b_minhash(**ops, **counters).tolist() == [U32_MAX, U32_MAX, I32_MAX]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["blake2b64", "preimage"])
+def test_sweep_cuda_matches_workload_oracle(cuda_device, name):
+    w = workloads.get(name)
+    n0 = blake2b_minhash.launches, minhash.launches
+    r = sweep.sweep_min_hash("cmu440", 999_990, 1_000_020, device=cuda_device, workload=w)
+    assert (r.hash, r.nonce) == w.min_range("cmu440", 999_990, 1_000_020)
+    launched = (blake2b_minhash.launches - n0[0], minhash.launches - n0[1])
+    assert launched[0] > 0 if name == "blake2b64" else launched[1] > 0
