@@ -24,7 +24,14 @@ replaced by the plain version.  ``--throttle-nps`` paces the sweep,
 drains: the chunks already received are finished and answered before the
 miner exits.
 
-Not ported yet: ``--telemetry``, ``--devices`` and ``--multihost``.
+``--devices N`` shards each dispatch of a device tier over ``cuda:0`` …
+``cuda:N-1`` (``SweepPipeline(devices=)``); with ``--backend torch
+--device cpu`` it runs N CPU shards.  ``--multihost --coordinator HOST:PORT
+--num-hosts N --host-id I`` makes N processes one logical miner over
+``torch.distributed`` (gloo): host 0 talks LSP and broadcasts each Request,
+every host sweeps its devices' shards of it (``parallel/multihost.py``).
+
+Not ported yet: ``--telemetry``.
 """
 
 from __future__ import annotations
@@ -77,14 +84,16 @@ def _resolve_tier(backend: str, workload, device=None) -> str:
     )
 
 
-def make_search(backend: str = "auto", device=None, workload=None) -> SearchFn:
+def make_search(backend: str = "auto", device=None, workload=None,
+                devices=None) -> SearchFn:
     """Build the blocking (data, lower, upper) -> (min_hash, nonce) search.
     ``workload``: a registered workload (or its name); None is the
-    default ``sha256d``."""
+    default ``sha256d``.  ``devices``: N shards (or a list of shard
+    devices) for a device tier; None or 1 is one device."""
     from ..workloads import resolve
 
     wl = resolve(workload)
-    return wl.make_search(_resolve_tier(backend, wl, device), device)
+    return wl.make_search(_resolve_tier(backend, wl, device), device, devices=devices)
 
 
 class _PoolSearch:
@@ -111,16 +120,21 @@ class _PipelineSearch:
 
     def __init__(
         self, backend: str, device=None, host_lane_budget: Optional[int] = None,
-        workload=None,
+        workload=None, devices=None,
     ) -> None:
         from concurrent.futures import Future
 
         from ..ops.sweep import SweepPipeline
 
+        shards = None
+        if devices is not None:
+            from ..parallel import resolve_devices
+
+            shards, device = resolve_devices(devices, device), None
         self._Future = Future
         self._p = SweepPipeline(
             backend=backend, device=device, host_lane_budget=host_lane_budget,
-            workload=workload,
+            workload=workload, devices=shards,
         )
 
     def submit(self, data: str, lower: int, upper: int):
@@ -143,18 +157,19 @@ class _PipelineSearch:
 
 def make_async_search(
     backend: str = "auto", device=None, host_lane_budget: Optional[int] = None,
-    workload=None,
+    workload=None, devices=None,
 ):
     """Build the async (submit -> Future of (hash, nonce)) search the miner
     serves Requests with: the cross-request SweepPipeline for the ``cuda``
-    and ``torch`` rungs, a single-worker pool for the host tiers.
-    ``host_lane_budget``: see ``SweepPipeline`` (None = auto).
-    ``workload``: see :func:`make_search`."""
+    and ``torch`` rungs (sharded over ``devices`` unless that is None or
+    1), a single-worker pool for the host tiers.  ``host_lane_budget``:
+    see ``SweepPipeline`` (None = auto).  ``workload``/``devices``: see
+    :func:`make_search`."""
     from ..workloads import resolve
 
     wl = resolve(workload)
     return wl.make_async_search(_resolve_tier(backend, wl, device), device,
-                                host_lane_budget=host_lane_budget)
+                                host_lane_budget=host_lane_budget, devices=devices)
 
 
 def run_miner(
@@ -471,13 +486,15 @@ def _swallow(fn) -> None:
 
 
 def make_tiered_search(backend: str = "auto", device=None,
-                       wedge_seconds: float = 30.0, workload=None) -> _TieredSearch:
+                       wedge_seconds: float = 30.0, workload=None,
+                       devices=None) -> _TieredSearch:
     """The self-healing search: the requested tier, then the host tiers of
     the workload's ladder below it (cpu, hashlib last: pure Python cannot
-    wedge).  The one device tier runs on ``device``; a wedged card leaves
-    the chain for the host, never for another rung on the same card.
-    ``backend`` resolves as in :func:`make_async_search`; an unknown
-    workload or tier, or a first tier that cannot be built, raises."""
+    wedge).  The one device tier runs on ``device`` (sharded over
+    ``devices``, see :func:`make_search`); a wedged card leaves the chain
+    for the host, never for another rung on the same card.  ``backend``
+    resolves as in :func:`make_async_search`; an unknown workload or tier,
+    or a first tier that cannot be built, raises."""
     from ..workloads import resolve
     from ..workloads.base import DEVICE_TIERS
 
@@ -489,10 +506,129 @@ def make_tiered_search(backend: str = "auto", device=None,
     def factory(tier: str):
         if tier == "hashlib":
             return lambda: _PoolSearch(wl.min_range)
-        return lambda: make_async_search(tier, device if tier == first else None,
-                                         workload=wl)
+        if tier == first:
+            return lambda: make_async_search(tier, device, workload=wl, devices=devices)
+        return lambda: make_async_search(tier, workload=wl)
 
     return _TieredSearch([(t, factory(t)) for t in tiers], wedge_seconds=wedge_seconds)
+
+
+def serve_multihost(client, sweep: SearchFn, broadcast) -> None:
+    """The primary/secondary Request loop of a multi-host logical miner.
+
+    ``client`` is the primary host's LSP connection (None on secondaries);
+    ``sweep(data, lower, upper) -> (hash, nonce)`` is the collective sweep
+    every host executes in lockstep; ``broadcast(buf) -> buf`` is the
+    host-0-to-all collective.  Factored out of :func:`run_miner_multihost`
+    (which supplies the ``torch.distributed`` wiring) so the protocol logic
+    is unit-testable on one host.
+    """
+    from ..parallel.multihost import decode_request, encode_request, encode_shutdown
+
+    while True:
+        # host 0 reads the next Request; everyone gets it via broadcast.
+        buf = encode_shutdown()
+        if client is not None:
+            msg = None
+            while msg is None or msg.type != MsgType.REQUEST:
+                try:
+                    msg = Message.unmarshal(client.read())
+                except lsp.LspError:
+                    msg = None
+                    break
+            if msg is not None:
+                try:
+                    buf = encode_request(msg.data, msg.lower, msg.upper)
+                except ValueError as e:
+                    # Un-broadcastable Request (e.g. oversize data): refuse
+                    # loudly — a truncated sweep would return a plausible
+                    # but WRONG Result.  Shut the whole logical miner down;
+                    # the dropped conn makes the scheduler reassign.
+                    print(f"miner: rejecting request: {e}", file=sys.stderr)
+        req = decode_request(broadcast(buf))
+        if req is None:
+            return  # scheduler gone / fatal request: all hosts exit together
+        data, lower, upper = req
+        h, n = sweep(data, lower, upper)
+        if client is not None:
+            try:
+                client.write(Message.result(h, n).marshal())
+            except lsp.LspError:
+                return
+
+
+def _multihost_shards(backend: str, device, devices):
+    """``(tier, local shard devices)`` of one host of a multi-host miner:
+    ``devices`` as in :func:`make_search`, else ``device``, else every
+    visible card.  Raises before any host joins the job on a
+    configuration it cannot run (a host tier, no card)."""
+    import torch
+
+    from ..parallel import default_devices, resolve_devices
+    from ..workloads.base import DEVICE_TIERS
+
+    tier = _resolve_backend(backend, device)
+    if tier not in DEVICE_TIERS:
+        raise ValueError(f"--multihost requires a device tier (cuda/torch), got {tier!r}")
+    if devices is not None:
+        return tier, resolve_devices(devices, device)
+    if device is not None:
+        return tier, resolve_devices([torch.device(device)])
+    return tier, default_devices()
+
+
+def run_miner_multihost(hostport: str, coordinator: str, num_hosts: int, host_id: int,
+                        *, backend: str = "auto", device=None, devices=None) -> None:
+    """One logical miner spanning ``num_hosts`` processes.
+
+    Every process runs the same sharded sweep over the global shard list
+    (its own devices' slice of each dispatch; see ``parallel/multihost.py``);
+    only host 0 talks LSP to the scheduler and broadcasts each Request's
+    parameters to the others.  The default workload only, as in the
+    reference.  ``backend``/``device``/``devices``: this host's shards
+    (:func:`_multihost_shards`).  The host lane budget is fixed here, the
+    same on every host, so every host routes the same digit classes to its
+    host fold and calls the same collectives.
+    """
+    from ..ops.sweep import auto_host_lane_budget
+    from ..parallel import multihost, sweep_min_hash_sharded
+
+    tier, local = _multihost_shards(backend, device, devices)
+    budget = auto_host_lane_budget()
+    multihost.initialize(coordinator, num_hosts, host_id)
+    try:
+        world = multihost.global_world(local)
+        requests = multihost.request_group()
+
+        def broadcast(buf):
+            return multihost.broadcast(buf, requests)
+
+        client = None
+        if multihost.is_primary():
+            host, _, port = hostport.rpartition(":")
+            try:
+                client = lsp.Client(host or "127.0.0.1", int(port))
+            except (lsp.LspError, OSError, ValueError) as e:
+                print("Failed to join with server:", e)
+                broadcast(multihost.encode_shutdown())
+                return
+            client.write(Message.join().marshal())
+
+        def sweep(data: str, lower: int, upper: int) -> Tuple[int, int]:
+            r = sweep_min_hash_sharded(data, lower, upper, devices=local, backend=tier,
+                                       host_lane_budget=budget, world=world)
+            return r.hash, r.nonce
+
+        try:
+            serve_multihost(client, sweep, broadcast)
+        finally:
+            if client is not None:
+                try:
+                    client.close()
+                except lsp.LspError:
+                    pass
+    finally:
+        multihost.shutdown()
 
 
 class _PacedSearch:
@@ -556,16 +692,27 @@ def main(argv=None) -> int:
     parser.add_argument("--throttle-nps", type=float, default=0.0)
     # The hash family; must match the server's (the wire never names it).
     parser.add_argument("--workload", default=os.environ.get("BMT_WORKLOAD") or None)
+    # Shards of a device tier: cuda:0..N-1, or N CPU shards with --device cpu.
+    parser.add_argument("--devices", type=int, default=None)
+    # One logical miner over several processes (torch.distributed, gloo).
+    parser.add_argument("--multihost", action="store_true")
+    parser.add_argument("--coordinator", default=None)
+    parser.add_argument("--num-hosts", type=int, default=None)
+    parser.add_argument("--host-id", type=int, default=None)
     args = parser.parse_args(argv[1:])
+    if args.multihost:
+        return _main_multihost(args)
     try:
         from ..workloads import resolve as resolve_workload
 
         workload = resolve_workload(args.workload)
         if args.watchdog is not None:
             search = make_tiered_search(args.backend, args.device,
-                                        wedge_seconds=args.watchdog, workload=workload)
+                                        wedge_seconds=args.watchdog, workload=workload,
+                                        devices=args.devices)
         else:
-            search = make_async_search(args.backend, args.device, workload=workload)
+            search = make_async_search(args.backend, args.device, workload=workload,
+                                       devices=args.devices)
     except (ValueError, NoDeviceError) as e:
         print("Invalid miner configuration:", e)
         return 0
@@ -605,6 +752,28 @@ def main(argv=None) -> int:
         except lsp.LspError:
             pass
     return 0
+
+def _main_multihost(args) -> int:
+    """``main``'s ``--multihost`` branch: the reference's refusals, then
+    :func:`run_miner_multihost`."""
+    if None in (args.coordinator, args.num_hosts, args.host_id):
+        print("--multihost requires --coordinator, --num-hosts, --host-id")
+        return 0
+    from ..workloads import resolve_nondefault
+
+    try:
+        nondefault = resolve_nondefault(args.workload)
+        if nondefault is not None:
+            # Lockstep sweep over every host: the frozen default only.
+            raise ValueError("--multihost supports the default workload only")
+        _multihost_shards(args.backend, args.device, args.devices)
+    except (ValueError, NoDeviceError) as e:
+        print("Invalid miner configuration:", e)
+        return 0
+    run_miner_multihost(args.hostport, args.coordinator, args.num_hosts, args.host_id,
+                        backend=args.backend, device=args.device, devices=args.devices)
+    return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -209,17 +209,21 @@ def minhash(
     words, shifts, th_word = _launch_args(midstate, tail, bounds, low_pos, thresh)
     lib = _lib()
     dev = midstate.device
-    partials = torch.empty(
-        2 * lib.bmt_sha256_minhash_partials(batch, k), dtype=torch.int64, device=dev
-    )
-    out = torch.empty(3, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.bmt_sha256_minhash(
-        midstate.data_ptr(), tail.data_ptr(), bounds.data_ptr(), batch, n_tb, k,
-        words, shifts, *resume_point(low_pos, n_tb), int(thresh is not None),
-        None if th_word is None else th_word.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), stream,
-    )
+    # The C entry point launches on the calling thread's current device:
+    # make it the operands' device (a thread's current device is cuda:0
+    # unless set, so a launch on another card would fail).
+    with torch.cuda.device(dev):
+        partials = torch.empty(
+            2 * lib.bmt_sha256_minhash_partials(batch, k), dtype=torch.int64, device=dev
+        )
+        out = torch.empty(3, dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bmt_sha256_minhash(
+            midstate.data_ptr(), tail.data_ptr(), bounds.data_ptr(), batch, n_tb, k,
+            words, shifts, *resume_point(low_pos, n_tb), int(thresh is not None),
+            None if th_word is None else th_word.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"{_SOURCE} launch failed with code {rc}")
     minhash.launches += 1

@@ -25,8 +25,9 @@ factored rung splits a chunk's ``10^k`` lanes into ``10^(k - k_in)`` outer
 digit groups of ``10^k_in`` inner lanes and computes each (row, group)'s
 round prefix once (``default_factor_k_in``).  Tiny digit classes fold on
 the host: the native C++ sweep for ``sha256d`` (hashlib where it does not
-build), the workload's cpu-tier loop otherwise.  Not ported yet: the mesh
-and hot-plane rungs.
+build), the workload's cpu-tier loop otherwise.  ``SweepPipeline(devices=)``
+shards each dispatch over several devices (``parallel/sweep.py`` holds the
+shards and the cascade).  Not ported yet: the hot plane.
 """
 
 from __future__ import annotations
@@ -417,6 +418,15 @@ class SweepPipeline:
     unfetched dispatches (backpressure); the sieve threshold is the job's
     running min known at enqueue time.
 
+    Mesh mode (``devices=``, a list of devices, repeats allowed; see
+    ``parallel.mesh.resolve_devices``): ``batch`` stays per device and a
+    dispatch's rows, ``len(devices) * batch``, are split contiguously over
+    the shards.  Each shard has its own CUDA stream; a dispatch makes one
+    launch, one 3-word copy into pinned host memory and one event per
+    shard, and the fetcher waits on every shard's event before it runs the
+    lowest-(device, flat) cascade and folds.  ``devices=None`` is the
+    single-device pipeline on ``device``.
+
     The reference warms each digit class's kernel ahead of time; here one
     binary serves every class and builds on the first dispatch, so there is
     nothing to prewarm.  ``submit`` is thread-safe.
@@ -436,6 +446,7 @@ class SweepPipeline:
         sieve: Optional[bool] = None,
         factored: Optional[bool] = None,
         workload=None,
+        devices=None,
     ) -> None:
         import queue as _queue
         import threading
@@ -443,17 +454,30 @@ class SweepPipeline:
 
         self._Future = Future
         self._sep, self._host_min, self._family = _workload_knobs(workload)
+        self._devices = None
+        if devices is not None:
+            from ..parallel.mesh import resolve_devices
+
+            self._devices = resolve_devices(devices)
+            device = self._devices[0]
         self._device = resolve_device(device)
         (self._backend, self._batch, self._max_k, self._sieve,
          self._factored) = auto_tune(
             backend, batch, max_k, sieve, self._device, factored, self._family
         )
+        self._per_dev_batch = self._batch
+        self._streams = None
+        if self._devices is not None:
+            self._batch = len(self._devices) * self._per_dev_batch
+            if self._device.type == "cuda":
+                self._streams = [torch.cuda.Stream(d) for d in self._devices]
         self._host_lane_budget = (
             auto_host_lane_budget() if host_lane_budget is None
             else host_lane_budget
         )
         self._stream = (
-            torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
+            torch.cuda.Stream(self._device)
+            if self._device.type == "cuda" and self._devices is None else None
         )
         try:
             self._wedge_after = int(_os.environ.get("BMT_WEDGE_DISPATCH", "0") or 0)
@@ -504,6 +528,22 @@ class SweepPipeline:
     def _get_kernel(self, layout, group):
         return _build_kernel(self._backend, layout, group, self._factored)
 
+    def _sharded_candidate(self, shards, bases, n_lanes):
+        """The candidate of one mesh-mode dispatch: each shard's output
+        (a CPU tensor, or a pinned buffer and its event), then the
+        cascade."""
+        from ..parallel.sweep import World, _candidate as sharded_candidate
+
+        vals = []
+        for out in shards:
+            if isinstance(out, tuple):
+                host, ev = out
+                ev.synchronize()  # blocks until this shard's copy lands
+                out = host
+            vals.append(out.tolist())
+        world = World(offset=0, n_shards=len(self._devices))
+        return sharded_candidate(vals, bases, n_lanes, self._per_dev_batch, world)
+
     def _dispatch_loop(self) -> None:
         import contextlib
 
@@ -532,6 +572,13 @@ class SweepPipeline:
                     b = state["best"]
                     th = (b[0][0] >> 32) if b else U32_MAX
                 t_enq = _time.monotonic()
+                if self._devices is not None:
+                    from ..parallel.sweep import sharded_invoke
+
+                    return (sharded_invoke(
+                        kern, midstate, tail_const, bounds, self._devices,
+                        self._per_dev_batch, thresh=th, streams=self._streams,
+                    ), None, t_enq)
                 out = _invoke_kernel(
                     kern, self._device, midstate, tail_const, bounds, thresh=th
                 )
@@ -611,9 +658,12 @@ class SweepPipeline:
                 continue
             try:
                 vals, ev, _t_enq = out
-                if ev is not None:
-                    ev.synchronize()  # blocks until the dispatch lands
-                cand = _candidate(vals.tolist(), bases, n_lanes)
+                if self._devices is not None:
+                    cand = self._sharded_candidate(vals, bases, n_lanes)
+                else:
+                    if ev is not None:
+                        ev.synchronize()  # blocks until the dispatch lands
+                    cand = _candidate(vals.tolist(), bases, n_lanes)
                 if cand is not None:
                     _fold(state["best"], cand)
             except BaseException as e:

@@ -37,8 +37,15 @@ GoldenVector = Tuple[str, int, int]
 #: the one tier that cannot wedge.
 TIER_LADDER = ("cuda", "torch", "cpu", "hashlib")
 
-#: The tiers that run the sweep pipeline on a device (``device=`` applies).
+#: The tiers that run the sweep pipeline on a device (``device=`` and
+#: ``devices=`` apply).
 DEVICE_TIERS = ("cuda", "torch")
+
+
+def _sharded(devices) -> bool:
+    """Whether ``devices`` asks for the multi-device sweep: anything but
+    None or 1 (a device list always does, even of one device)."""
+    return devices is not None and devices != 1
 
 
 class Workload:
@@ -94,10 +101,10 @@ class Workload:
                 f"workload {self.name!r} has no {tier!r} tier "
                 f"(ladder: {'->'.join(self.tiers)})"
             )
-        if devices is not None and devices != 1:
+        if _sharded(devices) and tier not in DEVICE_TIERS:
             raise ValueError(
-                f"devices={devices}: the port sweeps on one device (pass "
-                "device= to pick it)"
+                "--devices requires a device tier (cuda/torch); "
+                f"the {tier!r} tier is a single-process host loop"
             )
         if tier in DEVICE_TIERS and self.sep is None:
             raise ValueError(
@@ -108,12 +115,26 @@ class Workload:
     def make_search(self, tier: str, device=None, *, devices: Optional[int] = None):
         """A synchronous ``(data, lower, upper) -> (hash, nonce)`` search on
         ``tier``.  ``device`` (device tiers only): None is the CUDA card,
-        ``"cpu"`` the explicit request for the CPU."""
+        ``"cpu"`` the explicit request for the CPU.  ``devices`` (device
+        tiers only): N shards, or a list of shard devices
+        (``parallel.mesh.resolve_devices``), swept by
+        ``sweep_min_hash_sharded``; None or 1 is one device."""
         self._check_tier(tier, devices)
         if tier == "hashlib":
             return self.min_range
         if tier == "cpu":
             return self._cpu_search()
+        if _sharded(devices):
+            from ..parallel import resolve_devices, sweep_min_hash_sharded
+
+            shards = resolve_devices(devices, device)
+
+            def sharded(data: str, lower: int, upper: int) -> Tuple[int, int]:
+                r = sweep_min_hash_sharded(data, lower, upper, devices=shards,
+                                           backend=tier, workload=self)
+                return r.hash, r.nonce
+
+            return sharded
         from ..ops.sweep import sweep_min_hash
 
         def search(data: str, lower: int, upper: int) -> Tuple[int, int]:
@@ -129,13 +150,15 @@ class Workload:
         the shape ``apps.miner.run_miner`` serves Requests with: device
         tiers ride the cross-request ``SweepPipeline``, host tiers a
         one-worker FIFO pool.  ``host_lane_budget``: see ``SweepPipeline``
-        (None = auto)."""
+        (None = auto).  ``devices``: as for :meth:`make_search`, through
+        ``SweepPipeline(devices=)``."""
         self._check_tier(tier, devices)
         from ..apps import miner as miner_mod
 
         if tier in DEVICE_TIERS:
             return miner_mod._PipelineSearch(
-                tier, device=device, host_lane_budget=host_lane_budget, workload=self
+                tier, device=device, host_lane_budget=host_lane_budget, workload=self,
+                devices=devices if _sharded(devices) else None,
             )
         return miner_mod._PoolSearch(self.make_search(tier))
 

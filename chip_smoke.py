@@ -52,7 +52,20 @@ Phases (any failure ends the run non-zero, with no result line):
    checked against hashlib, every job's fold against the unfactored one,
    the Request across 1e9 against the oracle, and the factored kernel's
    launch count;
-10. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+10. mesh path — ``sweep_min_hash_sharded`` with one shard and with two
+   shards on cuda:0 against ``sweep_min_hash`` bit for bit on 1e9-nonce
+   Requests of the three kernels' paths (``sha256d`` on ``"cmu440"`` and the
+   56-character message, ``blake2b64``, ``factored=True``), and against the
+   oracle on small ranges, across 10^19 and up to 2^64 - 1, both sieve
+   forms; every card when there are more; the miner with ``--devices 1`` and
+   with two shards over LSP, each Result equal to the single-device
+   miner's, with its launch counts; a U S S U pair of 1e9 Requests, single
+   device against ``devices=[cuda:0]``, in nonces/s;
+11. multihost — two miner processes on the one card, ``--multihost
+   --num-hosts 2`` over gloo, against this script's LSP server: Results
+   held to the single-device miner's and the oracle; both exit 0 and
+   report their launch counts;
+12. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
@@ -102,6 +115,16 @@ STRADDLE_DATA = "How vexingly quick daft zebras jump, said the old man."
 FIB1_DATA = "Pack my box with five dozen liquor jugs, then ship it!!!"
 MAIN_B, MAIN_K = 1024, 6  # the cuda rung's batch and max_k (ops/sweep.py auto_tune)
 MAIN_K_IN = 3  # default_factor_k_in(MAIN_K)
+# One rank of the multihost phase: the port miner's main with this
+# process's argv, then its return code and the kernel's launch count.
+RANK_CODE = """
+import json, sys
+from bitcoin_miner_tpu_torch.apps import miner
+from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+rc = miner.main(["miner", *sys.argv[1:]])
+print(json.dumps({"main_rc": rc, "minhash_launches": minhash.launches}), flush=True)
+sys.exit(rc)
+"""
 
 
 def log(*a) -> None:
@@ -192,6 +215,10 @@ class Smoke:
         # full dispatch that both kernels are timed on
         self.full_disp = {}
         self.folds = {}  # job data -> the unfactored main path's fold
+        # miner argv joined -> {(data, lo, hi): (hash, nonce)} of each Result
+        self.results = {}
+        self.mesh = {}  # the mesh path's launches and rates
+        self.multihost = {}  # the multihost miner's ranks
         self.native = {}  # the native host sweep's numbers
 
     # ------------------------------------------------------------ helpers
@@ -565,26 +592,30 @@ class Smoke:
         self.b_stats["max_abs_err"] = max_err
         log(f"blake2b kernel == plain, bit-exact, in {n_cases} cases (tolerance 0)")
 
-    def drive_miner(self, argv, jobs, hash_fn, range_fn, kernels):
+    def drive_miner(self, argv, jobs, hash_fn, range_fn, kernels, run=None):
         """Run the port miner's ``main`` with ``argv`` in a thread against
-        this script's own LSP server.  Each job ``(data, hi)`` is served as
-        Requests of 1e9 nonces, then again as pipelined Requests of 5e8, and
-        the two folds must agree; then one Request across 1e9 (``"cmu440"``)
-        against ``range_fn``.  Every Result is held to ``hash_fn``.  The
-        launch counts of ``kernels`` (wrappers) are set to 0 just before the
-        miner starts and read just after it stops.  Returns ``(folds,
-        rates, launches)``."""
+        this script's own LSP server (or ``run(server)``, which serves it
+        some other way and returns an exit code).  Each job ``(data, hi)``
+        is served as Requests of 1e9 nonces, then again as pipelined
+        Requests of 5e8, and the two folds must agree; then one Request
+        across 1e9 (``"cmu440"``) against ``range_fn``.  Every Result is
+        held to ``hash_fn`` and kept in ``self.results[label][(data, lo,
+        hi)]``, the label being ``argv`` joined.  The launch counts of
+        ``kernels`` (wrappers) are set to 0 just before the miner starts and
+        read just after it stops.  Returns ``(folds, rates, launches)``."""
         from bitcoin_miner_tpu_torch import lsp
         from bitcoin_miner_tpu_torch.apps import miner
         from bitcoin_miner_tpu_torch.bitcoin.message import Message, MsgType
 
         server = lsp.Server(0)
         port = server.port
+        results = self.results.setdefault(" ".join(argv), {})
         rc = {}
+        if run is None:
+            def run(_server):
+                return miner.main(["miner", f"127.0.0.1:{port}", *argv, "--reconnect", "0"])
         t = threading.Thread(
-            target=lambda: rc.setdefault("rc", miner.main(
-                ["miner", f"127.0.0.1:{port}", *argv, "--reconnect", "0"])),
-            name="port-miner", daemon=True,
+            target=lambda: rc.setdefault("rc", run(server)), name="port-miner", daemon=True,
         )
         for k in kernels:
             k.launches = 0  # counts from here on are this path's
@@ -619,6 +650,7 @@ class Smoke:
                     if not lo <= r.nonce <= hi or r.hash != hash_fn(data, r.nonce):
                         raise AssertionError(f"bad Result {r} for [{lo}, {hi}]")
                     out.append((lo, hi, r.hash, r.nonce, dt))
+                    results[(data, lo, hi)] = (r.hash, r.nonce)
                     log(f"  Request {data[:12]!r}[{lo}, {hi}] -> ({r.hash}, {r.nonce}) "
                         f"{dt:.3f} s, {(hi - lo + 1) / dt:,.0f} nonces/s [{self.card}]")
                 return out
@@ -785,6 +817,187 @@ class Smoke:
         if got != min_hash_range(*across):
             raise AssertionError(f"{across}: factored {got} != oracle")
         log(f"factored Request across 1e9 equals the min_hash_range oracle: {got}")
+
+    def same_as_single_device(self, key: str) -> None:
+        """Every Result of the miner run ``key`` equals the single-device
+        miner's (the main path's) for the same Request."""
+        single = self.results["--backend cuda"]
+        for req, res in self.results[key].items():
+            if req not in single or single[req] != res:
+                raise AssertionError(f"{key} {req}: {res} != single-device {single.get(req)}")
+
+    def phase_mesh_path(self) -> None:
+        """The multi-device sweep on the one card: (a) one shard equals the
+        single-device sweep bit for bit on 1e9-nonce Requests of each
+        kernel's path; (b) two shards on cuda:0 equal them too, and the
+        oracle on small ranges (4 rows per shard, so both shards hold rows),
+        across 10^19 and up to 2^64 - 1; (c) every card, when there are
+        more; (d) the miner with ``--devices 1`` and with two shards on
+        cuda:0 over LSP, each Result equal to the single-device miner's;
+        (e) a same-seed U S S U pair of 1e9 Requests, single-device against
+        ``devices=[cuda:0]``."""
+        from bitcoin_miner_tpu_torch import lsp, workloads
+        from bitcoin_miner_tpu_torch.apps import miner
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
+        from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
+        from bitcoin_miner_tpu_torch.ops.sweep import SweepPipeline, sweep_min_hash
+        from bitcoin_miner_tpu_torch.parallel import default_devices, sweep_min_hash_sharded
+
+        torch, dev = self.torch, self.dev
+        b2 = workloads.get("blake2b64")
+        sha = workloads.get("sha256d")
+        # (label, data, workload, factored, the wrapper its path launches)
+        paths = [("sha256d", "cmu440", sha, False, minhash),
+                 ("sha256d", FIB1_DATA, sha, False, minhash),
+                 ("blake2b64", "cmu440", b2, False, blake2b_minhash),
+                 ("sha256d factored", FIB1_DATA, sha, True, minhash_factored)]
+
+        def held(label, got, want):
+            got = (got.hash, got.nonce, got.lanes_swept)
+            want = want if isinstance(want, tuple) else (want.hash, want.nonce, want.lanes_swept)
+            log(f"  {label}: {got[:2]} {'OK' if got[:len(want)] == want else 'MISMATCH'}")
+            if got[:len(want)] != want:
+                raise AssertionError(f"{label}: {got} != {want}")
+
+        lo, hi = 0, 10**9 - 1
+        for label, data, w, factored, kern in paths:
+            one = sweep_min_hash(data, lo, hi, device=dev, workload=w, factored=factored)
+            if one.hash != w.hash_nonce(data, one.nonce):
+                raise AssertionError(f"{label} {data[:12]!r}: bad single-device result {one}")
+            shard_sets = [("1 shard", [dev]), ("2 shards on cuda:0", [dev, dev])]
+            if torch.cuda.device_count() > 1:
+                shard_sets.append((f"{torch.cuda.device_count()} cards", default_devices()))
+            for name, shards in shard_sets:
+                n0 = kern.launches
+                got = sweep_min_hash_sharded(data, lo, hi, devices=shards, workload=w,
+                                             factored=factored)
+                if kern.launches == n0:
+                    raise AssertionError(f"{label} {name}: {kern.__name__} never launched")
+                held(f"{label} {data[:12]!r}[{lo}, {hi}] {name} == single device", got, one)
+        if torch.cuda.device_count() < 2:
+            log("  (c) every card: skipped, this machine has one CUDA card")
+        small = [(999_000, 1_012_345, dict(max_k=3, batch_per_device=4))]
+        small += [(a, b, {}) for a, b in ((10**19 - 40, 10**19 + 25), (2**64 - 60, 2**64 - 1))]
+        for label, _data, w, factored, _kern in paths[::2] + paths[3:]:
+            for a, b, kw in small:
+                want = w.min_range("mesh", a, b)
+                for sieve in (False, True):
+                    for shards in ([dev], [dev, dev]):
+                        got = sweep_min_hash_sharded("mesh", a, b, devices=shards, workload=w,
+                                                     factored=factored, sieve=sieve, **kw)
+                        held(f"{label} [{a}, {b}] sieve={sieve} {len(shards)} shard(s) "
+                             f"== oracle", got, want)
+        # (d) the miner over LSP: --devices 1, then two shards on cuda:0.
+        kernels = (minhash, minhash_factored, blake2b_minhash)
+
+        def two_shards(server):
+            client = lsp.Client("127.0.0.1", server.port)
+            try:
+                miner.run_miner(client, miner.make_async_search("cuda", devices=[dev, dev]))
+            finally:
+                try:
+                    client.close()
+                except lsp.LspError:
+                    pass
+            return 0
+
+        for argv, run in ((["--backend", "cuda", "--devices", "1"], None),
+                          (["--backend", "cuda", "devices=[cuda:0, cuda:0]"], two_shards)):
+            _folds, _rates, launches = self.drive_miner(
+                argv, [("cmu440", 999_999_999)], hash_nonce, min_hash_range, kernels, run=run)
+            key = " ".join(argv)
+            self.same_as_single_device(key)
+            log(f"miner {key}: every Result equals the single-device miner's; "
+                f"launches {launches}")
+            if launches["minhash"] <= 0:
+                raise AssertionError(f"miner {key} never launched the kernel")
+            self.mesh[f"launches {key}"] = launches
+        # (e) U S S U: nonces/s per 1e9 Request, single device against one shard.
+        pipes = {"single": SweepPipeline(backend="cuda"),
+                 "sharded": SweepPipeline(backend="cuda", devices=[dev])}
+        try:
+            for p in pipes.values():  # warm: streams, pinned buffers
+                p.submit("cmu440", 2 * 10**9, 2 * 10**9 + 10**6 - 1).result(timeout=300)
+            lo, hi = 10**9, 2 * 10**9 - 1
+            rates, found = {}, set()
+            for name in ("single", "sharded", "sharded", "single"):
+                t0 = time.monotonic()
+                r = pipes[name].submit("cmu440", lo, hi).result(timeout=300)
+                dt = time.monotonic() - t0
+                if r.hash != hash_nonce("cmu440", r.nonce):
+                    raise AssertionError(f"{name}: bad result {r}")
+                found.add((r.hash, r.nonce))
+                rates.setdefault(name, []).append((hi - lo + 1) / dt)
+            if len(found) != 1:
+                raise AssertionError(f"single device and one shard disagree: {found}")
+        finally:
+            for p in pipes.values():
+                p.close()
+        self.mesh["request_pair_u_s_s_u"] = rates
+        log(f"nonces/s per 1e9 Request 'cmu440'[{lo}, {hi}], U S S U: single device "
+            f"{rates['single']}, devices=[cuda:0] {rates['sharded']} [{self.card}]")
+
+    def phase_multihost(self) -> None:
+        """Two miner processes on the one card, ``--multihost --num-hosts
+        2`` over gloo, serving this script's LSP server: each Result held
+        to hashlib and to the single-device miner's for the same Request,
+        the Request across 1e9 to the oracle; both processes exit 0 and
+        report their launch counts (from 0 in each process)."""
+        import socket
+
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
+
+        logs = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build")
+        ranks = {}
+
+        def run(server):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                coord = sock.getsockname()[1]
+            procs = []
+            for i in range(2):
+                with open(os.path.join(logs, f"multihost_rank{i}.log"), "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", RANK_CODE, f"127.0.0.1:{server.port}",
+                         "--multihost", f"--coordinator=127.0.0.1:{coord}",
+                         "--num-hosts=2", f"--host-id={i}"],
+                        stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
+                        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}))
+            deadline = time.monotonic() + 300
+            try:
+                # A rank that fails, or a run past the deadline, ends both
+                # ranks and the server (unblocking this phase's reads).
+                while any(p.poll() is None for p in procs):
+                    if any(p.poll() not in (None, 0) for p in procs) \
+                            or time.monotonic() > deadline:
+                        server.close()
+                        break
+                    time.sleep(0.2)
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                    p.wait()
+            for i, p in enumerate(procs):
+                with open(os.path.join(logs, f"multihost_rank{i}.log")) as f:
+                    text = f.read()
+                log(f"  rank {i} exited {p.returncode}; its output ends: {text[-600:]!r}")
+                last = [ln for ln in text.splitlines() if ln.startswith("{")]
+                ranks[i] = dict(rc=p.returncode, **(json.loads(last[-1]) if last else {}))
+            return max(abs(p.returncode) for p in procs)
+
+        argv = ["--multihost", "--num-hosts=2"]
+        self.drive_miner(argv, [("cmu440", 999_999_999)], hash_nonce, min_hash_range, (),
+                         run=run)
+        self.same_as_single_device(" ".join(argv))
+        log(f"multihost: every Result equals the single-device miner's; ranks {ranks}")
+        for i in range(2):
+            if ranks[i]["rc"] != 0 or ranks[i].get("minhash_launches", 0) <= 0:
+                raise AssertionError(f"rank {i}: {ranks[i]}")
+        self.multihost = ranks
 
     def phase_numbers(self) -> None:
         from bitcoin_miner_tpu_torch.ops.sha256 import factor_low_pos
@@ -1010,6 +1223,8 @@ class Smoke:
             ("workload paths", self.phase_workload_paths),
             ("watchdog drill", self.phase_watchdog),
             ("factored path", self.phase_factored_path),
+            ("mesh path", self.phase_mesh_path),
+            ("multihost", self.phase_multihost),
             ("numbers", self.phase_numbers),
         ]
         for name, fn in phases:
@@ -1065,7 +1280,8 @@ class Smoke:
             **{key: b[key] for key in (
                 "shape", "per_message", "request_rates", "sm_clock_mhz",
                 "sass", "ptxas")},
-        }], "launches_preimage_path": s["launches_preimage"], "native": self.native}
+        }], "launches_preimage_path": s["launches_preimage"], "native": self.native,
+            "mesh_path": self.mesh, "multihost_ranks": self.multihost}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch

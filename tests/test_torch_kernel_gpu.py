@@ -1,8 +1,10 @@
 """The CUDA min-hash kernels against their plain PyTorch versions, on the card.
 
 The SHA-256 kernels (main and factored) and the BLAKE2b-64 kernel, each
-held to its plain version on the same operands; and the cuda rung's sweeps
-of each workload held to the workload's oracle.
+held to its plain version on the same operands; the cuda rung's sweeps of
+each workload held to the workload's oracle, across 10^19 and up to the
+u64 edge too; and the sharded sweep (one and two shards on one card, and
+the mesh pipeline) held to the single-device sweep.
 
 Marked ``gpu``: without a CUDA card each test skips with a reason.  This
 file imports only the port (no JAX), so it also runs on a machine without
@@ -32,6 +34,7 @@ from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import (
     minhash_factored,
     minhash_factored_plain,
 )
+from bitcoin_miner_tpu_torch.parallel import sweep_min_hash_sharded
 
 
 @pytest.fixture
@@ -246,3 +249,81 @@ def test_sweep_cuda_matches_workload_oracle(cuda_device, name):
     assert (r.hash, r.nonce) == w.min_range("cmu440", 999_990, 1_000_020)
     launched = (blake2b_minhash.launches - n0[0], minhash.launches - n0[1])
     assert launched[0] > 0 if name == "blake2b64" else launched[1] > 0
+
+
+# The three kernels' paths: (workload, factored) -> the wrapper it launches.
+KERNEL_PATHS = [("sha256d", False, minhash), ("sha256d", True, minhash_factored),
+                ("blake2b64", False, blake2b_minhash)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,factored,kernel", KERNEL_PATHS)
+@pytest.mark.parametrize("sieve", [False, True])
+@pytest.mark.parametrize("n", [1, 2])
+def test_sharded_on_one_card_matches_single_device(cuda_device, name, factored, kernel,
+                                                   sieve, n):
+    """n shards on cuda:0 against the single-device sweep with as many rows
+    per dispatch: 4 rows per shard, so the d = 7 class's 13 chunks spread
+    over both shards and the last dispatch pads."""
+    w = workloads.get(name)
+    kw = dict(max_k=3, workload=w, sieve=sieve, factored=factored)
+    lo, hi = 999_000, 1_012_345
+    n0 = kernel.launches
+    got = sweep_min_hash_sharded("mesh", lo, hi, devices=[cuda_device] * n,
+                                 batch_per_device=4, **kw)
+    assert kernel.launches > n0
+    one = sweep.sweep_min_hash("mesh", lo, hi, device=cuda_device, batch=4 * n, **kw)
+    assert (got.hash, got.nonce, got.lanes_swept) == (one.hash, one.nonce, one.lanes_swept)
+    assert (got.hash, got.nonce) == w.min_range("mesh", lo, hi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,factored,kernel", KERNEL_PATHS)
+@pytest.mark.parametrize("lo,hi", [(10**19 - 40, 10**19 + 25), (2**64 - 60, 2**64 - 1)])
+@pytest.mark.parametrize("n", [None, 2])
+def test_sweep_across_1e19_and_to_the_u64_edge_on_card(cuda_device, name, factored, kernel,
+                                                        lo, hi, n):
+    """d = 19 and 20 at the cuda rung's defaults, one device (n None) or
+    two shards on cuda:0, against the oracle."""
+    w = workloads.get(name)
+    n0 = kernel.launches
+    if n is None:
+        r = sweep.sweep_min_hash("edge", lo, hi, device=cuda_device, workload=w,
+                                 factored=factored)
+    else:
+        r = sweep_min_hash_sharded("edge", lo, hi, devices=[cuda_device] * n, workload=w,
+                                   factored=factored)
+    assert kernel.launches > n0
+    assert (r.hash, r.nonce) == w.min_range("edge", lo, hi)
+
+
+@pytest.mark.gpu
+def test_mesh_pipeline_on_one_card_matches_single_device(cuda_device):
+    jobs = [("cmu440", 999_000, 1_012_345), ("x", 95, 100_020), ("cmu440", 10**8, 10**8 + 99)]
+    kw = dict(backend="cuda", max_k=3, batch=4, host_lane_budget=0)
+    mesh_p = sweep.SweepPipeline(devices=[cuda_device] * 2, **kw)
+    one_p = sweep.SweepPipeline(device=cuda_device, **kw)
+    try:
+        futs = [(job, mesh_p.submit(*job), one_p.submit(*job)) for job in jobs]
+        for job, fm, fo in futs:
+            a, b = fm.result(timeout=120), fo.result(timeout=120)
+            assert (a.hash, a.nonce, a.lanes_swept) == (b.hash, b.nonce, b.lanes_swept), job
+            assert (a.hash, a.nonce) == min_hash_range(*job), job
+    finally:
+        mesh_p.close()
+        one_p.close()
+
+
+@pytest.mark.gpu
+def test_wrappers_launch_on_their_tensors_card(cuda_device):
+    """A launch on cuda:1 from a thread whose current device is cuda:0:
+    each wrapper makes the operands' card current around its launch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    ops = _operands("cmu440", 10, 6, 4, seed=3, device=other)
+    assert minhash(**ops).tolist() == minhash_plain(**ops).tolist()
+    assert minhash_factored(**ops, k_in=3).tolist() == minhash_plain(**ops).tolist()
+    b_ops, counters = _blake2b_operands("cmu440", 10, 6, 4, seed=3, device=other)
+    assert blake2b_minhash(**b_ops, **counters).tolist() == _blake2b_plain(b_ops, counters)

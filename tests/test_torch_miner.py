@@ -5,8 +5,10 @@ protocol to a port miner on ``--backend torch`` on the CPU, built with
 ``host_lane_budget=0`` so the plain version of the kernel, not the host
 fold, answers; for the default workload and, through ``--workload``, for
 ``preimage`` and ``blake2b64`` (the scheduler then serves the same
-workload).  The watchdog drill wedges the torch rung's pipeline and checks
-the logged, counted downgrade.  In-process, loopback UDP, small LSP epochs.
+workload), and with ``--devices 3`` (three CPU shards).  The watchdog drill
+wedges the torch rung's pipeline and checks the logged, counted downgrade.
+The CLI's stdout lines are pinned as tests/test_cli_contracts.py pins the
+JAX package's.  In-process, loopback UDP, small LSP epochs.
 """
 
 import io
@@ -191,7 +193,7 @@ def _fake_cuda(monkeypatch, tier):
     other rungs are the real ones.  Records (tier, device) per build."""
     real, built = miner.make_async_search, []
 
-    def fake(backend, device=None, host_lane_budget=None, workload=None):
+    def fake(backend, device=None, host_lane_budget=None, workload=None, devices=None):
         built.append((backend, device))
         return tier if backend == "cuda" else real(backend, device, workload=workload)
 
@@ -272,6 +274,13 @@ def test_miner_log_prints_submit_and_done(capfd):
     ["--backend", "xla", "--workload", "blake2b64"],
     ["--backend", "auto", "--workload", "preimage", "--watchdog", "5"],
     ["--backend", "cuda", "--device", "cpu", "--watchdog", "5"],
+    ["--backend", "cpu", "--devices", "2"],
+    ["--backend", "torch", "--device", "cpu", "--devices", "0"],
+    ["--backend", "torch", "--device", "cuda:1", "--devices", "2"],
+    ["--multihost", "--coordinator", "127.0.0.1:9", "--num-hosts", "2", "--host-id", "0",
+     "--workload", "blake2b64", "--backend", "torch", "--device", "cpu"],
+    ["--multihost", "--coordinator", "127.0.0.1:9", "--num-hosts", "2", "--host-id", "0",
+     "--backend", "cpu"],
 ])
 def test_invalid_miner_configuration(argv):
     if "auto" in argv and torch.cuda.is_available():
@@ -305,3 +314,58 @@ def test_drain_answers_received_chunks_then_exits():
     finally:
         server.close()
         mc.close()
+
+
+def test_usage_line_matches_reference(capsys):
+    """The frozen usage line (reference ``bitcoin/miner/miner.go:18-24``),
+    as tests/test_cli_contracts.py pins it for the JAX package's miner."""
+    assert miner.main(["miner"]) == 0
+    assert capsys.readouterr().out == "Usage: ./miner <hostport>"
+
+
+def test_failed_join_is_reported_not_raised(capsys):
+    assert miner.main(["miner", "nocolonhere", "--backend", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("Failed to join with server:")
+
+
+def test_multihost_requires_topology_flags(capsys):
+    for argv in (["--multihost"], ["--multihost", "--coordinator", "127.0.0.1:9"],
+                 ["--multihost", "--num-hosts", "2", "--host-id", "0"]):
+        assert miner.main(["miner", "127.0.0.1:9", *argv]) == 0
+        assert capsys.readouterr().out == (
+            "--multihost requires --coordinator, --num-hosts, --host-id\n")
+
+
+def test_devices_on_a_host_tier_names_the_device_tiers(capsys):
+    assert miner.main(["miner", "127.0.0.1:9", "--backend", "cpu", "--devices", "2"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("Invalid miner configuration: --devices requires a device tier")
+    with pytest.raises(ValueError, match="--devices requires a device tier"):
+        miner.make_tiered_search("cpu", devices=3, workload="preimage")
+
+
+def test_port_miner_with_devices_serves_reference_scheduler():
+    """``--devices 3`` on the CPU rung (three CPU shards through
+    ``SweepPipeline(devices=)``) against the JAX package's scheduler."""
+    server = ref_lsp.Server(0, REF_PARAMS)
+    st = threading.Thread(
+        target=ref_server.serve, args=(server, Scheduler(min_chunk=50)), daemon=True
+    )
+    st.start()
+    search = miner.make_async_search("torch", device="cpu", host_lane_budget=0, devices=3)
+    assert len(search._p._devices) == 3
+    mc = lsp.Client("127.0.0.1", server.port, PARAMS)
+    mt = threading.Thread(target=miner.run_miner, args=(mc, search), daemon=True)
+    mt.start()
+    try:
+        c = ref_lsp.Client("127.0.0.1", server.port, REF_PARAMS)
+        try:
+            res = ref_client.request_once(c, "shards", 100_049, lower=99_950, timeout=60)
+        finally:
+            c.close()
+        assert res == min_hash_range("shards", 99_950, 100_049)
+    finally:
+        server.close()
+        mt.join(timeout=30)
+        mc.close()
+    assert not mt.is_alive()
