@@ -1,4 +1,4 @@
-"""bitcoin_miner_tpu_torch — the PyTorch/CUDA port of the miner.
+"""bitcoin_miner_tpu_torch — the PyTorch/CUDA port of the mining system.
 
 The JAX package ``bitcoin_miner_tpu`` is the reference; this package mirrors
 its module names so each counterpart is easy to find, and imports neither
@@ -12,8 +12,9 @@ Layer map of the ported slice:
   L3  bitcoin/   application wire protocol + hashlib oracle
       ops/       SHA-256 host layout, the min-hash sweep, the Hopper kernel
                  (csrc/sha256_minhash.cu) and its plain PyTorch version
-  L4  apps/      the miner binary
-      utils/     device probe, retry policy
+  L4  apps/      the server (scheduler), miner and client binaries
+      utils/     device probe, retry policy, metrics, tracing, the race
+                 sanitizer, interval algebra, WFQ, atomic persistence
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``); with no card and no such request they raise.

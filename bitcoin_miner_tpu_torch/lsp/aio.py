@@ -232,6 +232,20 @@ class AsyncServer:
     def port(self) -> int:
         return self._endpoint.local_addr[1]
 
+    def conns_live(self) -> int:
+        """Live (handshaken, not yet finished) conns right now — the
+        ``gw.conns_live`` gauge source.  A plain ``len`` of the conn table:
+        atomic under the GIL, so the serve ticker may read it from its own
+        thread without a loop hop."""
+        return len(self._conns)
+
+    def peer_host(self, conn_id: int) -> Optional[str]:
+        """The remote host of a live connection, or None once it is gone:
+        a client identity that is stable across reconnects, unlike the
+        conn id and the UDP source port."""
+        sc = self._conns.get(conn_id)
+        return sc.addr[0] if sc is not None else None
+
     # -- API -----------------------------------------------------------------
 
     async def read(self) -> Tuple[int, bytes]:

@@ -4,6 +4,8 @@ The reference's frozen APIs are goroutine-blocking (``lsp/client_api.go``,
 ``lsp/server_api.go``); Python callers (the miner binary, test and smoke
 harness threads) get the same shape here: each facade owns a dedicated
 event-loop thread and proxies calls with ``run_coroutine_threadsafe``.
+Applications that are already async (the server's ``AsyncIngress``) use
+:class:`AsyncServer` directly.
 """
 
 from __future__ import annotations
@@ -15,19 +17,34 @@ from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Any, Callable, Coroutine, Optional, Tuple
 
+from ..utils import sanitize
 from .aio import AsyncClient, AsyncServer
 from .errors import ConnClosedError
 from .params import Params
 
 
 class _LoopThread:
-    """A daemon thread running a private asyncio loop."""
+    """A daemon thread running a private asyncio loop.
+
+    Under ``BMT_SANITIZE=1`` the loop joins the sanitizer's
+    acquisition-order graph as a lock-shaped resource: blocking proxy
+    calls record ``held-locks -> loop`` edges, the loop thread itself
+    "holds" its loop name so callbacks taking tracked locks record
+    ``loop -> lock``, and a cycle — the Future-spelled ABBA deadlock
+    between the serve event lock and an LSP loop — raises
+    deterministically.  Calling ``run``/``call`` FROM the owning loop
+    thread (a guaranteed self-deadlock: the Future can never resolve while
+    its own loop blocks on it) raises RaceError outright."""
 
     def __init__(self, name: str) -> None:
         self.loop = asyncio.new_event_loop()
         self._stopping = False
+        self._san = sanitize.enabled()  # captured once: per-call env reads are hot-path cost
+        self._san_name = f"lsp.loop.{name}"
 
         def _run() -> None:
+            if self._san:
+                sanitize.loop_thread_enter(self._san_name)
             try:
                 self.loop.run_forever()
             finally:
@@ -47,6 +64,8 @@ class _LoopThread:
         self._thread.start()
 
     def run(self, coro: "Coroutine", timeout: Optional[float] = None) -> Any:
+        if self._san:
+            self._observe_entry("run")
         if self._stopping:
             coro.close()
             raise ConnClosedError()
@@ -69,9 +88,26 @@ class _LoopThread:
             fut.cancel()
             raise TimeoutError(f"no result within {timeout:g}s")
 
+    def _observe_entry(self, what: str) -> None:
+        """Sanitizer coverage for a blocking proxy call (see class
+        docstring): refuse self-deadlocks, refuse blocking any OTHER
+        registered loop (a loop thread parked on a Future stalls every
+        conn riding it, whichever loop resolves it), and record lock-order
+        edges."""
+        if threading.current_thread() is self._thread:
+            raise sanitize.RaceError(
+                f"{self._san_name}.{what}() called from its own loop "
+                f"thread — the blocking Future can never resolve while "
+                f"the loop waits on it (guaranteed deadlock)"
+            )
+        sanitize.blocking(f"{self._san_name}.{what}")
+        sanitize.loop_wait(self._san_name)
+
     def call(self, fn: Callable, *args: Any) -> Any:
         """Run a plain callable on the loop thread (for non-async mutations
         that must happen on the owning loop)."""
+        if self._san:
+            self._observe_entry("call")
         done: Future = Future()
 
         def _invoke() -> None:  # on-loop: runs via call_soon_threadsafe
@@ -155,6 +191,21 @@ class Server:
     @property
     def port(self) -> int:
         return self._s.port
+
+    def conns_live(self) -> int:
+        """Live conns right now (the ``gw.conns_live`` gauge source).
+        Same benign snapshot read as :meth:`AsyncServer.conns_live` — a
+        dict ``len`` is atomic under the GIL, so no loop hop."""
+        return self._s.conns_live()
+
+    def peer_host(self, conn_id: int) -> Optional[str]:
+        """The remote host of a live conn (a client identity stable across
+        reconnects, unlike the conn id), or None if the conn is already
+        gone or the server is closed."""
+        try:
+            return self._lt.call(self._s.peer_host, conn_id)
+        except ConnClosedError:
+            return None
 
     def read(self) -> Tuple[int, bytes]:
         """Block for the next message from any client.  Raises ConnLostError

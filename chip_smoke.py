@@ -65,7 +65,17 @@ Phases (any failure ends the run non-zero, with no result line):
    --num-hosts 2`` over gloo, against this script's LSP server: Results
    held to the single-device miner's and the oracle; both exit 0 and
    report their launch counts;
-12. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+12. serving path — the port's three binaries as processes: ``apps.server``
+   with two ``apps.miner`` processes (the cuda rung, on the one card) and
+   three concurrent ``apps.client`` jobs ("cmu440" to 9,999,999,999, the
+   56-character message to 4,999,999,999, "cmu440" to 999,999); a kill
+   drill ("drill" to 19,999,999,999, one miner SIGKILLed holding work);
+   one long job through ``--async-ingress``; one ``--workload=blake2b64``
+   job of 2e9 nonces.  Each Result held to hashlib and to
+   ``sweep_min_hash`` over the same range (the short one to
+   ``min_hash_range``); each job's time to Result, nonces/s and Requests
+   sent (from the server's trace), each miner's launch counts;
+13. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
@@ -127,8 +137,209 @@ sys.exit(rc)
 """
 
 
+# One miner of the serving phase: the port miner's main with this process's
+# argv, then its return code and every kernel's launch count.
+SERVE_MINER_CODE = """
+import json, sys
+from bitcoin_miner_tpu_torch.apps import miner
+from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
+rc = miner.main(["miner", *sys.argv[1:]])
+print(json.dumps({"main_rc": rc, "launches": {k.__name__: k.launches for k in
+                  (minhash, minhash_factored, blake2b_minhash)}}), flush=True)
+sys.exit(rc)
+"""
+# The serving phase's time limits (s): a miner's start-up to its Join, one
+# job from its client's start to its Result, the whole phase (every wait
+# ends at the phase's limit too).
+SERVE_JOIN_S, SERVE_JOB_S, SERVE_PHASE_S = 90, 120, 300
+# The serving phase's jobs (data, maxNonce): three concurrent ones (the last
+# short enough for hashlib), the kill drill, the async-ingress repeat, the
+# blake2b64 one; and the miners' arguments (none: their defaults).
+SERVE_JOBS = [("cmu440", 9_999_999_999), (FIB1_DATA, 4_999_999_999), ("cmu440", 999_999)]
+SERVE_DRILL = ("drill", 19_999_999_999)
+SERVE_ASYNC_JOB = ("cmu440", 9_999_999_999)
+SERVE_B2_JOB = ("cmu440", 1_999_999_999)
+SERVE_MINER_ARGS: list = []
+
+
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+class ServeFleet:
+    """One port server process (``apps.server``) and its miner processes
+    (``apps.miner`` through ``SERVE_MINER_CODE``) on loopback, in a working
+    directory of their own: the server's ``log.txt`` and its ``--trace``
+    file land there.  Clients are ``apps.client`` processes."""
+
+    def __init__(self, workdir: str, name: str, deadline: float, server_args=(),
+                 miner_args=()) -> None:
+        import socket
+
+        self.deadline = deadline  # the phase's, on time.monotonic()
+        self.dir = os.path.join(workdir, name)
+        os.makedirs(self.dir)
+        self.name = name
+        self.trace = os.path.join(self.dir, "trace.jsonl")
+        self.miner_args = list(miner_args)
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.port = sock.getsockname()[1]
+        self.env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+        self.server = self._spawn("server", ["-m", "bitcoin_miner_tpu_torch.apps.server",
+                                             str(self.port), f"--trace={self.trace}",
+                                             *server_args])
+        self.miners = []  # [(process, server conn id)]
+        self.clients = []  # output labels of the client processes
+        self.launches = []  # each drained miner's launch counts
+        self.stopped = None  # the thread that stops the server
+
+    def _spawn(self, label: str, args):
+        out = open(os.path.join(self.dir, f"{label}.out"), "w")
+        try:
+            return subprocess.Popen([sys.executable, *args], cwd=self.dir, env=self.env,
+                                    stdout=out, stderr=subprocess.STDOUT)
+        finally:
+            out.close()
+
+    def read(self, label: str) -> str:
+        path = os.path.join(self.dir, label)
+        if not os.path.exists(path):
+            return ""
+        with open(path) as f:
+            return f.read()
+
+    def wait_for(self, pattern: str, count: int, timeout: float):
+        """The ``count``-th match of ``pattern`` in the server's log.txt;
+        fails if the server exits or the time runs out first."""
+        deadline = min(time.monotonic() + timeout, self.deadline)
+        while True:
+            found = re.findall(pattern, self.read("log.txt"))
+            if len(found) >= count:
+                return found[count - 1]
+            if self.server.poll() is not None:
+                raise AssertionError(f"{self.name}: the server exited "
+                                     f"{self.server.returncode}: {self.read('server.out')!r}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.name}: no {pattern!r} within {timeout} s")
+            time.sleep(0.05)
+
+    def start_miners(self, n: int, serial: bool):
+        """Start ``n`` miners; with ``serial``, each after the previous one
+        joined, so each process's server conn id is known."""
+        procs = []
+        for _ in range(n):
+            i = len(self.miners) + len(procs)
+            procs.append(self._spawn(f"miner{i}", ["-c", SERVE_MINER_CODE,
+                                                   f"127.0.0.1:{self.port}",
+                                                   *self.miner_args]))
+            if serial:
+                conn = self.wait_for(r"miner (\d+) joined", i + 1, SERVE_JOIN_S)
+                self.miners.append((procs.pop(), int(conn)))
+        for p in procs:
+            self.miners.append((p, None))
+        if not serial:
+            self.wait_for(r"miner (\d+) joined", len(self.miners), SERVE_JOIN_S)
+
+    def jobs(self, jobs, kill=None):
+        """Run one ``apps.client`` process per job ``(data, maxNonce)``, all
+        at once.  With ``kill`` (a miner index), SIGKILL that miner 0.5 s
+        after the server logged the first job's Request.  Returns
+        ``[(hash, nonce, seconds from the client's start to its exit)]`` and
+        the kill's monotonic time; a client that prints anything but a
+        Result, exits non-zero or runs past SERVE_JOB_S fails."""
+        started = []
+        for data, hi in jobs:
+            label = f"client{len(self.clients)}"
+            self.clients.append(label)
+            started.append((label, time.monotonic(), self._spawn(label, [
+                "-m", "bitcoin_miner_tpu_torch.apps.client", f"127.0.0.1:{self.port}",
+                data, str(hi)])))
+        killed_at = None
+        if kill is not None:
+            self.wait_for(rf"request from \d+: data={re.escape(repr(jobs[0][0]))}", 1, 60)
+            time.sleep(0.5)
+            proc, _conn = self.miners[kill]
+            proc.kill()
+            killed_at = time.monotonic()
+            proc.wait()
+        ended = {}  # client index -> its exit time, polled as they come
+        while len(ended) < len(started):
+            now = time.monotonic()
+            for i, (_label, t0, p) in enumerate(started):
+                if i in ended:
+                    continue
+                if p.poll() is not None:
+                    ended[i] = now
+                elif now > min(t0 + SERVE_JOB_S, self.deadline):
+                    p.kill()
+                    p.wait()
+                    raise AssertionError(f"{self.name}: job {jobs[i]} hung past "
+                                         f"{now - t0:.0f} s")
+            time.sleep(0.005)
+        out = []
+        for i, ((label, t0, p), job) in enumerate(zip(started, jobs)):
+            dt = ended[i] - t0
+            text = self.read(f"{label}.out")
+            m = re.fullmatch(r"Result (\d+) (\d+)\n", text)
+            if p.returncode != 0 or not m:
+                raise AssertionError(f"{self.name}: job {job}: client exited "
+                                     f"{p.returncode}, printed {text!r}")
+            out.append((int(m.group(1)), int(m.group(2)), dt))
+        return out, killed_at
+
+    def stop(self) -> None:
+        """SIGTERM the live miners (they answer what they hold and exit 0,
+        printing their launch counts), then stop the server in the
+        background: it exits once LSP has given up on every conn."""
+        if self.server.poll() is not None:
+            raise AssertionError(f"{self.name}: the server exited {self.server.returncode} "
+                                 f"before it was stopped: {self.read('server.out')[-2000:]!r}")
+        for i, (p, _conn) in enumerate(self.miners):
+            if p.poll() is not None:
+                continue
+            p.terminate()
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                raise AssertionError(f"{self.name}: miner {i} did not drain")
+            text = self.read(f"miner{i}.out")
+            last = [ln for ln in text.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not last:
+                raise AssertionError(f"{self.name}: miner {i} exited {p.returncode}: "
+                                     f"{text[-2000:]!r}")
+            self.launches.append(json.loads(last[-1])["launches"])
+
+        def stop_server():
+            self.server.send_signal(2)  # SIGINT: serve()'s shutdown, then LSP's
+            try:
+                self.server.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.server.kill()
+                self.server.wait()
+
+        self.stopped = threading.Thread(target=stop_server, daemon=True)
+        self.stopped.start()
+
+    def kill_all(self) -> None:
+        for p in [self.server] + [p for p, _c in self.miners]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def trace_events(self):
+        rows = []
+        for line in self.read("trace.jsonl").splitlines():
+            try:
+                rows.append(json.loads(line))
+            except ValueError:
+                pass  # a line torn by the stop
+        return rows
 
 
 def smi(query: str) -> str:
@@ -220,6 +431,7 @@ class Smoke:
         self.mesh = {}  # the mesh path's launches and rates
         self.multihost = {}  # the multihost miner's ranks
         self.native = {}  # the native host sweep's numbers
+        self.serving = {}  # the serving path's jobs, times and launches
 
     # ------------------------------------------------------------ helpers
 
@@ -999,6 +1211,165 @@ class Smoke:
                 raise AssertionError(f"rank {i}: {ranks[i]}")
         self.multihost = ranks
 
+    def phase_serving(self) -> None:
+        """The port's three binaries on the card: ``apps.server`` (the
+        blocking shell) with two ``apps.miner`` processes at their defaults
+        (the cuda rung, the sieve kernel) and three concurrent
+        ``apps.client`` jobs; then a fourth job with one miner SIGKILLed
+        after the server sent it work; one long job again through a server
+        with ``--async-ingress`` and two fresh miners; one job through a
+        ``--workload=blake2b64`` server and miner.  Every Result is held to
+        hashlib and to this process's ``sweep_min_hash`` over the same range
+        on the card (an independent split), the short job to
+        ``min_hash_range``.  Prints each job's time to Result (the client
+        process's wall time and the scheduler's, from its trace) and
+        nonces/s, the Requests the server sent per job, the drill's
+        reassignments, and each miner's launch counts.  The miners share
+        one card, so their sum is no faster than one miner: this measures
+        the scheduler's split, reassignment and time to Result, not
+        scaling."""
+        import shutil
+        import tempfile
+
+        from bitcoin_miner_tpu_torch import workloads
+        from bitcoin_miner_tpu_torch.bitcoin.hash import min_hash_range
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+
+        deadline = time.monotonic() + SERVE_PHASE_S
+        b2 = workloads.get("blake2b64")
+        work = tempfile.mkdtemp(prefix="serving-")
+        keep = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build", "serving")
+        fleets, report = [], {}
+
+        def traced(fleet, jobs, got):
+            """Per job: the scheduler's time to Result and the Requests it
+            sent, from the server's trace (job_start's data and upper name
+            the job; its trace id joins the dispatch events)."""
+            rows = fleet.trace_events()
+            ids = {}
+            for r in rows:
+                a = r.get("attrs") or {}
+                if r["event"] == "job_start":
+                    ids[(a["data"], a["upper"])] = r["trace"]
+            out = []
+            for (data, hi), (h, n, wall) in zip(jobs, got):
+                tid = ids.get((data[:64], hi))
+                done = [r for r in rows if r["trace"] == tid and r["event"] == "job_done"]
+                sent = [r for r in rows if r["trace"] == tid and r["event"] == "dispatch"]
+                sched_s = (done[0].get("attrs") or {}).get("elapsed") if done else None
+                row = dict(data=data[:12], max_nonce=hi, result=[h, n], client_wall_s=wall,
+                           client_nonces_per_s=(hi + 1) / wall, sched_s=sched_s,
+                           sched_nonces_per_s=(hi + 1) / sched_s if sched_s else None,
+                           requests=len(sent), trace_id=tid)
+                out.append(row)
+                log(f"  {fleet.name}: job {data[:12]!r} [0, {hi}] -> ({h}, {n}); time to "
+                    f"Result {wall:.3f} s at the client ({(hi + 1) / wall:,.0f} nonces/s), "
+                    f"{sched_s} s in the scheduler; {len(sent)} Requests sent [{self.card}]")
+                if tid is None or not done or not sent:
+                    raise AssertionError(f"{fleet.name}: job {data!r} is not in the trace")
+            return out, rows
+
+        def held(fleet, jobs, got, wl=None):
+            for (data, hi), (h, n, _wall) in zip(jobs, got):
+                w = wl or workloads.get("sha256d")
+                if h != w.hash_nonce(data, n) or not 0 <= n <= hi:
+                    raise AssertionError(f"{fleet.name}: bad Result ({h}, {n}) for {data!r}")
+                if hi <= SERVE_JOBS[-1][1]:
+                    want = min_hash_range(data, 0, hi) if wl is None else wl.min_range(data, 0, hi)
+                    how = "min_hash_range"
+                else:
+                    r = sweep_min_hash(data, 0, hi, device=self.dev, workload=wl)
+                    want, how = (r.hash, r.nonce), "sweep_min_hash on the card"
+                if (h, n) != want:
+                    raise AssertionError(f"{fleet.name}: {data!r} [0, {hi}]: served ({h}, {n}) "
+                                         f"!= {how} {want}")
+                log(f"  {fleet.name}: {data[:12]!r} [0, {hi}] equals {how}: {want}")
+
+        try:
+            # (a) the blocking server, two miners, three concurrent jobs.
+            s1 = ServeFleet(work, "serve", deadline, miner_args=SERVE_MINER_ARGS)
+            fleets.append(s1)
+            s1.start_miners(2, serial=True)  # serial: each miner's conn id known
+            jobs = SERVE_JOBS
+            got, _ = s1.jobs(jobs)
+            # (b) the kill drill: the first miner dies holding work.
+            drill = [SERVE_DRILL]
+            got_d, killed_at = s1.jobs(drill, kill=0)
+            time.sleep(1.5)  # the server's ticker flushes its trace each second
+            rows1, trace1 = traced(s1, jobs, got)
+            rows_d, _ = traced(s1, drill, got_d)
+            dead = s1.miners[0][1]
+            tid = rows_d[0]["trace_id"]
+            to_dead = [r for r in trace1 if r["trace"] == tid and r["event"] == "dispatch"
+                       and r["attrs"]["miner"] == dead]
+            before = [r for r in to_dead if r["t"] < killed_at]
+            answered = [r for r in trace1 if r["trace"] == tid and r["event"] == "chunk_result"
+                        and r["attrs"]["miner"] == dead]
+            reclaimed = [r for r in trace1 if r["trace"] == tid and r["attrs"]
+                         and r["attrs"].get("miner") == dead
+                         and r["event"] in ("steal", "straggler_requeue")]
+            rows_d[0].update(killed_miner=dead, sent_to_killed=len(to_dead),
+                             sent_before_kill=len(before), answered_by_killed=len(answered),
+                             reassigned=len(to_dead) - len(answered),
+                             steal_or_requeue_events=len(reclaimed))
+            log(f"  kill drill: miner conn {dead} SIGKILLed; the server had sent it "
+                f"{len(before)} Requests of the job before ({len(to_dead)} in all), it "
+                f"answered {len(answered)}; {len(to_dead) - len(answered)} went to the "
+                f"other miner ({len(reclaimed)} by steal or straggler re-queue, the rest "
+                f"on the conn's loss)")
+            if len(before) <= len(answered):
+                raise AssertionError("the killed miner held no work when it died")
+            health = re.findall(r"health .*", s1.read("log.txt"))
+            log(f"  last health line: {health[-1] if health else None}")
+            s1.stop()
+            # (c) the async-ingress server and (d) the blake2b64 server: both
+            # fleets start together (their start-ups overlap), then run in turn.
+            s2 = ServeFleet(work, "async", deadline, ["--async-ingress"], SERVE_MINER_ARGS)
+            s3 = ServeFleet(work, "blake2b64", deadline, ["--workload=blake2b64"],
+                            ["--workload", "blake2b64", *SERVE_MINER_ARGS])
+            fleets += [s2, s3]
+            s2.start_miners(2, serial=False)
+            s3.start_miners(1, serial=False)
+            jobs2 = [SERVE_ASYNC_JOB]
+            got2, _ = s2.jobs(jobs2)
+            jobs3 = [SERVE_B2_JOB]
+            got3, _ = s3.jobs(jobs3)
+            time.sleep(1.5)
+            rows2, _ = traced(s2, jobs2, got2)
+            rows3, _ = traced(s3, jobs3, got3)
+            s2.stop()
+            s3.stop()
+            # The Results, held on the card after every fleet is idle.
+            held(s1, jobs + drill, got + got_d)
+            held(s2, jobs2, got2)
+            held(s3, jobs3, got3, b2)
+            if got2[0][:2] != got[0][:2]:
+                raise AssertionError("the async-ingress server's Result differs")
+            for f in fleets:
+                log(f"  {f.name}: launches per drained miner {f.launches}")
+            sha = [f for f in fleets if f is not s3]
+            if not all(ln["minhash"] > 0 for f in sha for ln in f.launches) \
+                    or not s3.launches or s3.launches[0]["blake2b_minhash"] <= 0:
+                raise AssertionError("a serving miner never launched its kernel")
+            for f in fleets:
+                f.stopped.join(timeout=60)
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the serving phase ran past {SERVE_PHASE_S} s")
+            # The drained miners' counts (the killed one printed none).
+            self.k_stats["launches_serving"] = sum(ln["minhash"] for f in sha
+                                                   for ln in f.launches)
+            self.b_stats["launches_serving"] = s3.launches[0]["blake2b_minhash"]
+            report.update(jobs=rows1 + rows_d + rows2 + rows3,
+                          launches={f.name: f.launches for f in fleets},
+                          card=self.card)
+            self.serving = report
+        finally:
+            for f in fleets:
+                f.kill_all()
+            shutil.rmtree(keep, ignore_errors=True)
+            shutil.copytree(work, keep, dirs_exist_ok=True)
+            shutil.rmtree(work, ignore_errors=True)
+
     def phase_numbers(self) -> None:
         from bitcoin_miner_tpu_torch.ops.sha256 import factor_low_pos
         from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
@@ -1225,6 +1596,7 @@ class Smoke:
             ("factored path", self.phase_factored_path),
             ("mesh path", self.phase_mesh_path),
             ("multihost", self.phase_multihost),
+            ("serving path", self.phase_serving),
             ("numbers", self.phase_numbers),
         ]
         for name, fn in phases:
@@ -1258,7 +1630,7 @@ class Smoke:
                 "bound_ms_two_blocks", "bound_ms_two_blocks_all_k_digits",
                 "lane_ops_two_blocks", "ms_56_chars", "ms_full_fold_56_chars",
                 "plain_ms_56_chars", "bound_ms_56_chars", "lane_ops_56_chars",
-                "sm_clock_mhz", "sass", "ptxas")},
+                "launches_serving", "sm_clock_mhz", "sass", "ptxas")},
         }, {
             "name": "sha256_minhash_factored",
             "route": "cuda",
@@ -1278,10 +1650,11 @@ class Smoke:
             "bound_by": "operations",
             "library_ms": None,
             **{key: b[key] for key in (
-                "shape", "per_message", "request_rates", "sm_clock_mhz",
-                "sass", "ptxas")},
+                "shape", "per_message", "request_rates", "launches_serving",
+                "sm_clock_mhz", "sass", "ptxas")},
         }], "launches_preimage_path": s["launches_preimage"], "native": self.native,
-            "mesh_path": self.mesh, "multihost_ranks": self.multihost}
+            "mesh_path": self.mesh, "multihost_ranks": self.multihost,
+            "serving_path": self.serving}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch

@@ -1,0 +1,337 @@
+"""The port's server (both shells) and client, held to the JAX package's.
+
+- Over the wire, in-process on loopback with small LSP epochs: the port
+  server with the port client and port CPU miners; with the reference's
+  miner and client; the reference server with the port's client; a
+  non-default workload.  Each on the blocking ``serve`` shell and on
+  ``AsyncIngress``, every Result equal to the oracle.
+- Checkpoints across packages: a state file one package's server writes is
+  staged by the other's ``main``, in both directions; a file of another
+  workload stages nothing, in both; a resubmitted job resumes from it.
+- The CLI contracts: each package's ``server.main`` and ``client.main``
+  print the same stdout for the same argv, and every server flag whose
+  module is not ported yet stops ``main`` before it binds a port.
+- The three CLIs as processes: a job runs from the port client through the
+  port server to a port miner with no module of JAX or of the JAX package
+  loaded in any of them.
+"""
+
+import io
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+from contextlib import redirect_stdout
+from pathlib import Path
+
+import pytest
+
+from bitcoin_miner_tpu import lsp as ref_lsp
+from bitcoin_miner_tpu import lspnet as ref_lspnet
+from bitcoin_miner_tpu import workloads as ref_workloads
+from bitcoin_miner_tpu.apps import client as ref_client
+from bitcoin_miner_tpu.apps import miner as ref_miner
+from bitcoin_miner_tpu.apps import server as ref_server
+from bitcoin_miner_tpu.apps.scheduler import Scheduler as RefScheduler
+from bitcoin_miner_tpu_torch import lsp, workloads
+from bitcoin_miner_tpu_torch.apps import Scheduler, client, miner, server
+from bitcoin_miner_tpu_torch.bitcoin.hash import min_hash_range
+from bitcoin_miner_tpu_torch.utils import METRICS
+
+ROOT = Path(__file__).resolve().parent.parent
+PARAMS = lsp.Params(epoch_limit=5, epoch_millis=100, window_size=5)
+REF_PARAMS = ref_lsp.Params(epoch_limit=5, epoch_millis=100, window_size=5)
+# (package name) -> (lsp, server module, client module, miner module, Scheduler,
+# workloads, LSP params)
+PKG = {
+    "port": (lsp, server, client, miner, Scheduler, workloads, PARAMS),
+    "ref": (ref_lsp, ref_server, ref_client, ref_miner, RefScheduler, ref_workloads,
+            REF_PARAMS),
+}
+JOB = ("cmu440", 9_999)
+
+
+@pytest.fixture(autouse=True)
+def _clean_network():
+    ref_lspnet.reset_faults()
+    yield
+    ref_lspnet.reset_faults()
+
+
+def _start_server(pkg, shell, sched):
+    """``pkg``'s server on an ephemeral port, on the ``shell`` shell;
+    returns (port, stop)."""
+    lsp_mod, srv, _c, _m, _S, _w, params = PKG[pkg]
+    if shell == "async":
+        ing = srv.AsyncIngress(0, scheduler=sched, params=params, tick_interval=0.1).start()
+        return ing.port, ing.close
+    s = lsp_mod.Server(0, params)
+    t = threading.Thread(target=srv.serve, args=(s, sched),
+                         kwargs=dict(tick_interval=0.1), daemon=True)
+    t.start()
+
+    def stop():
+        s.close()
+        t.join(timeout=10)
+        assert not t.is_alive()
+
+    return s.port, stop
+
+
+def _start_miner(pkg, port, workload=None):
+    lsp_mod, _s, _c, m, _S, wl_mod, params = PKG[pkg]
+    wl = wl_mod.get(workload) if workload else None
+    search = m.make_async_search("cpu", workload=wl)
+    mc = lsp_mod.Client("127.0.0.1", port, params)
+    t = threading.Thread(target=m.run_miner, args=(mc, search), daemon=True)
+    t.start()
+
+    def stop():
+        t.join(timeout=10)
+        mc.close()
+        assert not t.is_alive()
+
+    return stop
+
+
+def _request(pkg, port, data, max_nonce):
+    lsp_mod, _s, c, _m, _S, _w, params = PKG[pkg]
+    conn = lsp_mod.Client("127.0.0.1", port, params)
+    try:
+        return c.request_once(conn, data, max_nonce, timeout=60)
+    finally:
+        conn.close()
+
+
+# (server, miners, client, workload)
+WIRE = {
+    "port_only": ("port", ("port", "port"), "port", None),
+    "port_server_ref_miner_client": ("port", ("ref",), "ref", None),
+    "ref_server_port_client": ("ref", ("ref",), "port", None),
+    "port_only_preimage": ("port", ("port",), "port", "preimage"),
+}
+
+
+@pytest.mark.parametrize("shell", ["serve", "async"])
+@pytest.mark.parametrize("case", list(WIRE))
+def test_wire_result_is_exact(case, shell):
+    srv_pkg, miner_pkgs, client_pkg, wl = WIRE[case]
+    _l, _s, _c, _m, sched_cls, wl_mod, _p = PKG[srv_pkg]
+    sched = sched_cls(min_chunk=2_000, workload=wl_mod.get(wl) if wl else None)
+    port, stop_server = _start_server(srv_pkg, shell, sched)
+    stops = []
+    try:
+        stops = [_start_miner(p, port, wl) for p in miner_pkgs]
+        got = _request(client_pkg, port, *JOB)
+    finally:
+        stop_server()
+        for stop in stops:
+            stop()
+    want = (workloads.get(wl).min_range(JOB[0], 0, JOB[1]) if wl
+            else min_hash_range(JOB[0], 0, JOB[1]))
+    assert got == want
+
+
+# ----------------------------------------------------------------- checkpoints
+
+
+def _progress_state(sched_cls, wl_mod, workload):
+    """A scheduler's checkpoint after one miner answered part of a job."""
+    wl = wl_mod.get(workload) if workload else None
+    s = sched_cls(min_chunk=1_000, workload=wl)
+    s.miner_joined(1)
+    s.client_request(2, JOB[0], 0, JOB[1])
+    oracle = wl.min_range if wl else min_hash_range
+    s.result(1, *oracle(JOB[0], 0, 999))
+    return s.checkpoint()
+
+
+def _main_stages(pkg, argv, monkeypatch):
+    """Run ``pkg``'s server ``main`` with ``argv`` up to the serve loop;
+    returns the scheduler it built (its checkpoint shows what it staged)."""
+    srv = PKG[pkg][1]
+    got = {}
+
+    def capture(s, scheduler=None, **_kw):
+        got["sched"] = scheduler
+        s.close()
+
+    monkeypatch.setattr(srv, "serve", capture)
+    with redirect_stdout(io.StringIO()) as out:
+        assert srv.main(["server", "0", *argv]) == 0
+    assert out.getvalue() == "Server listening on port 0\n"
+    return got["sched"]
+
+
+@pytest.mark.parametrize("writer,reader", [("ref", "port"), ("port", "ref")])
+@pytest.mark.parametrize("workload", [None, "blake2b64"])
+def test_checkpoint_file_resumes_across_packages(writer, reader, workload, tmp_path,
+                                                 monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    _l, w_srv, _c, _m, w_sched, w_wl, _p = PKG[writer]
+    state = _progress_state(w_sched, w_wl, workload)
+    assert (state.get("state") or state)["jobs"]
+    path = tmp_path / "ckpt.json"
+    w_srv.save_checkpoint(str(path), state)
+    flag = [f"--workload={workload}"] if workload else []
+    sched = _main_stages(reader, [f"--checkpoint={path}", *flag], monkeypatch)
+    assert sched.checkpoint() == state
+    # A server of the other workload stages nothing from the same file.
+    other = [] if workload else ["--workload=blake2b64"]
+    sched = _main_stages(reader, [f"--checkpoint={path}", *other], monkeypatch)
+    payload = sched.checkpoint()
+    assert (payload.get("state") or payload)["jobs"] == []
+
+
+def test_resubmitted_job_resumes_from_reference_checkpoint(tmp_path):
+    state = _progress_state(RefScheduler, ref_workloads, None)
+    path = tmp_path / "ckpt.json"
+    ref_server.save_checkpoint(str(path), state)
+    sched = Scheduler(min_chunk=1_000, resume_state=server.load_checkpoint(str(path)))
+    resumed0 = METRICS.get("sched.jobs_resumed")
+    swept0 = METRICS.get("sched.nonces_swept")
+    port, stop_server = _start_server("port", "serve", sched)
+    stop_miner = None
+    try:
+        stop_miner = _start_miner("port", port)
+        got = _request("port", port, *JOB)
+    finally:
+        stop_server()
+        if stop_miner:
+            stop_miner()
+    assert got == min_hash_range(JOB[0], 0, JOB[1])
+    assert METRICS.get("sched.jobs_resumed") == resumed0 + 1
+    assert METRICS.get("sched.nonces_swept") - swept0 == JOB[1] + 1 - 1_000
+
+
+# --------------------------------------------------------------- CLI contracts
+
+SERVER_ARGV = [
+    ["server"],
+    ["server", "1", "2"],
+    ["server", "abc"],
+    ["server", "0", "--workload=nope"],
+    ["server", "0", "--static-chunks=x"],
+    ["server", "0", "--chunk-target-s=fast", "--async-ingress"],
+]
+CLIENT_ARGV = [
+    ["client"],
+    ["client", "127.0.0.1:1", "msg"],
+    ["client", "127.0.0.1:1", "msg", "abc"],
+    ["client", "127.0.0.1:1", "msg", "-1"],
+    ["client", "127.0.0.1:1", "msg", str(2**64)],
+    ["client", "127.0.0.1:x", "msg", "5"],
+    ["client", "--retries=z", "127.0.0.1:1", "msg", "5"],
+]
+
+
+@pytest.mark.parametrize("argv", SERVER_ARGV, ids=" ".join)
+def test_server_cli_matches_reference(argv, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    outs = []
+    for srv in (ref_server, server):
+        with redirect_stdout(io.StringIO()) as out:
+            assert srv.main(list(argv)) == 0
+        outs.append(out.getvalue())
+    assert outs[1] == outs[0]
+    assert outs[1]
+
+
+@pytest.mark.parametrize("argv", CLIENT_ARGV, ids=" ".join)
+def test_client_cli_matches_reference(argv):
+    outs = []
+    for c in (ref_client, client):
+        out = io.StringIO()
+        assert c.main(list(argv), out=out) == 0
+        outs.append(out.getvalue())
+    assert outs[1] == outs[0]
+    assert outs[1]
+
+
+UNPORTED_FLAGS = ["--gateway", "--cache=c.json", "--spans=s.json", "--rate=5", "--burst=3",
+                  "--max-queued=9", "--prefill=100", "--telemetry-port=7000",
+                  "--fleet-log=f.jsonl", "--prom=p.txt", "--slo", "--slo=x", "--autoscale",
+                  "--autoscale=x"]
+UNPORTED_ENV = ["BMT_PREFILL", "BMT_TELEMETRY_PORT", "BMT_FLEET_LOG", "BMT_PROM", "BMT_SLO",
+                "BMT_AUTOSCALE", "BMT_CHAOS_SCENARIO"]
+
+
+@pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
+@pytest.mark.parametrize("spelling", UNPORTED_FLAGS + UNPORTED_ENV)
+def test_unported_server_flag_fails_before_binding(spelling, shell, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+
+    def bound(*_a, **_k):
+        raise AssertionError("the server bound a port")
+
+    monkeypatch.setattr(server.lsp, "Server", bound)
+    monkeypatch.setattr(server, "AsyncIngress", bound)
+    argv = ["server", "6060", *shell]
+    if spelling.startswith("BMT_"):
+        monkeypatch.setenv(spelling, "1")
+    else:
+        argv.append(spelling)
+    with redirect_stdout(io.StringIO()) as out:
+        assert server.main(argv) == 0
+    name = spelling.partition("=")[0]
+    assert out.getvalue() == f"Invalid server configuration: {name} is not ported yet\n"
+
+
+# ------------------------------------------------------------- the three CLIs
+
+# Runs a module as __main__ and reports, on exit or on SIGUSR1 (which also
+# ends the process), every loaded module of JAX or of the JAX package.
+WRAP = """
+import atexit, os, runpy, signal, sys
+def report(*_):
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "bitcoin_miner_tpu"))
+    print("FORBIDDEN", bad, file=sys.stderr, flush=True)
+def stop(*_):
+    report()
+    os._exit(0)
+atexit.register(report)
+signal.signal(signal.SIGUSR1, stop)
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def test_three_port_clis_run_a_job_without_jax(tmp_path):
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+
+    def start(*args):
+        return subprocess.Popen([sys.executable, "-c", WRAP, *args], cwd=tmp_path, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    srv = start("bitcoin_miner_tpu_torch.apps.server", str(port))
+    procs = [srv]
+    try:
+        assert srv.stdout.readline() == f"Server listening on port {port}\n"
+        mnr = start("bitcoin_miner_tpu_torch.apps.miner", f"127.0.0.1:{port}",
+                    "--backend", "cpu", "--reconnect", "0")
+        procs.append(mnr)
+        cli = start("bitcoin_miner_tpu_torch.apps.client", f"127.0.0.1:{port}", *JOB[:1],
+                    str(JOB[1]))
+        procs.append(cli)
+        out, cli_err = cli.communicate(timeout=60)
+        mnr.send_signal(signal.SIGTERM)  # the miner drains and exits 0
+        _o, mnr_err = mnr.communicate(timeout=30)
+        srv.send_signal(signal.SIGUSR1)
+        _o, srv_err = srv.communicate(timeout=30)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    h, n = min_hash_range(JOB[0], 0, JOB[1])
+    assert out == f"Result {h} {n}\n"
+    assert (cli.returncode, mnr.returncode, srv.returncode) == (0, 0, 0)
+    for err in (cli_err, mnr_err, srv_err):
+        assert "FORBIDDEN []" in err, err
+    assert (tmp_path / "log.txt").exists()
