@@ -120,7 +120,7 @@ class _PipelineSearch:
 
     def __init__(
         self, backend: str, device=None, host_lane_budget: Optional[int] = None,
-        workload=None, devices=None,
+        workload=None, devices=None, hot: Optional[bool] = None,
     ) -> None:
         from concurrent.futures import Future
 
@@ -134,7 +134,7 @@ class _PipelineSearch:
         self._Future = Future
         self._p = SweepPipeline(
             backend=backend, device=device, host_lane_budget=host_lane_budget,
-            workload=workload, devices=shards,
+            workload=workload, devices=shards, hot=hot,
         )
 
     def submit(self, data: str, lower: int, upper: int):
@@ -157,19 +157,23 @@ class _PipelineSearch:
 
 def make_async_search(
     backend: str = "auto", device=None, host_lane_budget: Optional[int] = None,
-    workload=None, devices=None,
+    workload=None, devices=None, hot: Optional[bool] = None,
 ):
     """Build the async (submit -> Future of (hash, nonce)) search the miner
     serves Requests with: the cross-request SweepPipeline for the ``cuda``
     and ``torch`` rungs (sharded over ``devices`` unless that is None or
     1), a single-worker pool for the host tiers.  ``host_lane_budget``:
     see ``SweepPipeline`` (None = auto).  ``workload``/``devices``: see
-    :func:`make_search`."""
-    from ..workloads import resolve
+    :func:`make_search`.  ``hot``: the default workload's pipeline takes
+    it (``ops.sweep.auto_hot``; None is the rung's default, False the
+    per-chunk path); other workloads go through their own factory without
+    it, as in the reference."""
+    from ..workloads import resolve, resolve_nondefault
 
     wl = resolve(workload)
     return wl.make_async_search(_resolve_tier(backend, wl, device), device,
-                                host_lane_budget=host_lane_budget, devices=devices)
+                                host_lane_budget=host_lane_budget, devices=devices,
+                                hot=None if resolve_nondefault(wl) else hot)
 
 
 def run_miner(
@@ -356,13 +360,15 @@ class _TieredSearch:
     budget — abandons that tier and re-runs the chunk on the next one, so
     the miner degrades instead of stalling.  The chain holds one device
     tier, the one asked for, then host tiers only (cpu → hashlib): no
-    fallback touches the card.  A host or ``torch`` tier that raises is
-    downgraded too; the ``cuda`` tier's errors (a kernel that fails to build
-    or launch) fail the chunk instead, so its kernels are never silently
-    replaced.  The first tier is built here, so a configuration error
-    raises at once.  The budget grows ``wedge_growth``× per downgrade: a
-    chunk sized for the card honestly takes far longer on a fallback, and a
-    flat budget would read slow-but-healthy as wedged.  Every downgrade is
+    fallback touches the card, except that a hot ``cuda`` tier is followed
+    by its per-chunk form (``cuda-perchunk``, the same kernels).  A host or
+    ``torch`` tier that raises is downgraded too; the ``cuda`` tiers'
+    errors (a kernel that fails to build or launch) fail the chunk instead,
+    so their kernels are never silently replaced.  The first tier is built
+    here, so a configuration error raises at once.  The budget grows
+    ``wedge_growth``× per downgrade: a chunk sized for the card honestly
+    takes far longer on a fallback, and a flat budget would read
+    slow-but-healthy as wedged.  Every downgrade is
     counted (:attr:`downgrades`) and printed on stderr with the tier, the
     reason and the count.  Chunks are served FIFO by one dispatcher thread
     (which serialises the tiers' sweeps: the price of wedge detection; a
@@ -370,7 +376,7 @@ class _TieredSearch:
     """
 
     #: Tiers whose errors fail the chunk rather than downgrade it.
-    _STRICT = ("cuda",)
+    _STRICT = ("cuda", "cuda-perchunk")
     _SHUTDOWN = object()
 
     def __init__(self, tiers, wedge_seconds: float = 30.0,
@@ -494,20 +500,33 @@ def make_tiered_search(backend: str = "auto", device=None,
     ``devices``, see :func:`make_search`); a wedged card leaves the chain
     for the host, never for another rung on the same card.  ``backend``
     resolves as in :func:`make_async_search`; an unknown workload or tier,
-    or a first tier that cannot be built, raises."""
-    from ..workloads import resolve
+    or a first tier that cannot be built, raises.
+
+    When the hot rung resolves ON for a ``cuda`` first tier of the default
+    workload (``ops.sweep.auto_hot``; OFF by default, so this is inert
+    until then), a ``cuda-perchunk`` rung (``hot=False``) comes before the
+    host tiers, as in the reference: a wedged hot loop need not cost the
+    card when the per-chunk form of the same kernels is healthy."""
+    from ..ops.sweep import auto_hot
+    from ..workloads import resolve, resolve_nondefault
     from ..workloads.base import DEVICE_TIERS
 
     wl = resolve(workload)
     first = _resolve_tier(backend, wl, device)
     below = wl.tiers[wl.tiers.index(first) + 1:]
     tiers = [first, *(t for t in below if t not in DEVICE_TIERS)]
+    if (first == "cuda" and resolve_nondefault(wl) is None
+            and auto_hot(None, first, wl.kernel_family)):
+        tiers.insert(1, "cuda-perchunk")
 
     def factory(tier: str):
         if tier == "hashlib":
             return lambda: _PoolSearch(wl.min_range)
         if tier == first:
             return lambda: make_async_search(tier, device, workload=wl, devices=devices)
+        if tier == "cuda-perchunk":
+            return lambda: make_async_search("cuda", device, workload=wl, devices=devices,
+                                             hot=False)
         return lambda: make_async_search(tier, workload=wl)
 
     return _TieredSearch([(t, factory(t)) for t in tiers], wedge_seconds=wedge_seconds)

@@ -34,7 +34,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .sha256 import DigitPos
-from .sha256_minhash import I32_MAX, PLAIN_LANES, U32_MAX, _pairs, sieved
+from .sha256_minhash import (
+    I32_MAX,
+    PLAIN_LANES,
+    U32_MAX,
+    _pairs,
+    lower_word,
+    plain_threshold,
+    sieved,
+)
 
 _MASK64 = (1 << 64) - 1
 _M32 = 0xFFFFFFFF
@@ -352,6 +360,7 @@ def blake2b_minhash_plain(
     msg_len: int,
     tail_off: int,
     k_in: int = 0,
+    th_word: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The BLAKE2b min-hash of one dispatch in plain PyTorch, on the
     operands' device: the triple of the reference's
@@ -362,7 +371,8 @@ def blake2b_minhash_plain(
     of ``i`` at ``low_pos`` (``k`` of them, most significant first).  The
     result is the lexicographic min of ``(h0, h1, r * 10^k + i)`` over valid
     lanes, ``(U32_MAX, U32_MAX, I32_MAX)`` when none is; with ``thresh``
-    the min only when its ``h0 <= thresh`` (ties survive).  ``msg_len`` and
+    the min only when its ``h0 <= thresh`` (ties survive); ``th_word`` may
+    stand for ``thresh`` as in ``ops/sha256_minhash.py``.  ``msg_len`` and
     ``tail_off`` give the blocks' byte counters (:func:`block_counters`).
 
     ``k_in = 0`` is the full-lane form: valid lanes are enumerated in
@@ -372,6 +382,7 @@ def blake2b_minhash_plain(
     the threshold tightened by the running best across groups.  Both
     compute the same function."""
     batch, n_tb = _check_operands(midstate, tail_const, bounds, low_pos, k)
+    thresh = plain_threshold(thresh, th_word, midstate.device)
     counters = block_counters(msg_len, tail_off, n_tb)
     pos = _pairs(low_pos)
     dev = midstate.device
@@ -382,7 +393,8 @@ def blake2b_minhash_plain(
     if k_in:
         if not 1 <= k_in < k:
             raise ValueError(f"k_in must be in [1, {k - 1}], got {k_in}")
-        return _grouped(mid, tail64, b64, pos, k, k_in, counters, thresh, dev)
+        best = _grouped(mid, tail64, b64, pos, k, k_in, counters, thresh, dev)
+        return torch.tensor(lower_word(th_word, best), dtype=torch.int64, device=dev)
 
     def digits(lanes):
         return [(w, ((lanes // 10 ** (k - 1 - j)) % 10 + 48) << s)
@@ -400,11 +412,12 @@ def blake2b_minhash_plain(
         rows = torch.searchsorted(ends, g, right=True)
         lanes = g - starts[rows] + lo[rows]
         best = min(best, _fold_lanes(mid, tail64, rows, lanes, digits, counters, n_lanes))
-    return torch.tensor(sieved(best, thresh), dtype=torch.int64, device=dev)
+    return torch.tensor(lower_word(th_word, sieved(best, thresh)), dtype=torch.int64,
+                        device=dev)
 
 
-def _grouped(mid, tail64, b64, pos, k, k_in, counters, thresh, dev) -> torch.Tensor:
-    """The grouped form of :func:`blake2b_minhash_plain`."""
+def _grouped(mid, tail64, b64, pos, k, k_in, counters, thresh, dev) -> Tuple[int, int, int]:
+    """The grouped form of :func:`blake2b_minhash_plain`: its output."""
     s_in = 10**k_in
     n_lanes = 10**k
     outer, inner = pos[: k - k_in], pos[k - k_in :]
@@ -431,7 +444,7 @@ def _grouped(mid, tail64, b64, pos, k, k_in, counters, thresh, dev) -> torch.Ten
         # are masked; the group's min survives iff its h0 is not above it.
         if thresh is None or cand[0] <= min(thresh, best[0]):
             best = min(best, cand)
-    return torch.tensor(best, dtype=torch.int64, device=dev)
+    return best
 
 
 # --------------------------------------------------------------------------

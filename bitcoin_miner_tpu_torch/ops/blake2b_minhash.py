@@ -17,6 +17,8 @@ Operands (the port's, all on one device):
 - ``low_pos`` — the k low digits' ``(word, shift)`` positions, most
   significant first; ``k = len(low_pos)``;
 - ``thresh`` — None for the full fold, else the sieve's uint32 threshold;
+- ``th_word`` — in place of ``thresh``, the sieve's (1,) int32 device word,
+  used and lowered in place (as in ops/sha256_minhash.py);
 - ``msg_len`` / ``tail_off`` — the message length and the bytes folded into
   the midstate, which give the blocks' byte counters.
 
@@ -63,6 +65,7 @@ def blake2b_minhash(
     *,
     msg_len: int,
     tail_off: int,
+    th_word: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The BLAKE2b min-hash of one dispatch (see the module docstring).
 
@@ -73,12 +76,13 @@ def blake2b_minhash(
     k = len(low_pos)
     if midstate.device.type == "cpu":
         return blake2b_minhash_plain(midstate, tail, bounds, thresh, low_pos=low_pos,
-                                     k=k, msg_len=msg_len, tail_off=tail_off)
+                                     k=k, msg_len=msg_len, tail_off=tail_off,
+                                     th_word=th_word)
     if midstate.device.type != "cuda":
         raise ValueError(f"no BLAKE2b min-hash kernel for device {midstate.device}")
     batch, n_tb = _check_operands(midstate, tail, bounds, low_pos, k)
     counters = block_counters(msg_len, tail_off, n_tb)
-    words, shifts, th_word = _launch_args(midstate, tail, bounds, low_pos, thresh)
+    words, shifts, th_word = _launch_args(midstate, tail, bounds, low_pos, thresh, th_word)
     lib = _lib()
     dev = midstate.device
     # The C entry point launches on the calling thread's current device:
@@ -93,7 +97,7 @@ def blake2b_minhash(
         rc = lib.bmt_blake2b_minhash(
             midstate.data_ptr(), tail.data_ptr(), bounds.data_ptr(), batch, n_tb, k,
             words, shifts, counters[0] if n_tb == 2 else 0, counters[-1],
-            int(thresh is not None), None if th_word is None else th_word.data_ptr(),
+            int(th_word is not None), None if th_word is None else th_word.data_ptr(),
             partials.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:

@@ -16,7 +16,11 @@ Operands (the port's, all on one device):
 - ``low_pos`` — the k low digits' ``(word, shift)`` positions, most
   significant first (``DigitPos`` or pairs); ``k = len(low_pos)``;
 - ``thresh`` — None for the full fold, else the sieve's plain uint32
-  threshold.
+  threshold;
+- ``th_word`` — in place of ``thresh``, the sieve's threshold as a (1,)
+  int32 tensor on the operands' device (uint32 bits), read by the launch
+  and lowered in place to the output's h0, never refilled from the host
+  (the hot plane's carried threshold).  Passing both raises.
 
 Result: a (3,) int64 tensor ``(h0, h1, flat_idx)`` — the lexicographic min
 over valid lanes, ``flat_idx = row * 10^k + lane``, lowest index on a tie;
@@ -84,6 +88,7 @@ def minhash_plain(
     bounds: torch.Tensor,
     low_pos: Sequence,
     thresh: Optional[int] = None,
+    th_word: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on the operands' device.
 
@@ -93,6 +98,7 @@ def minhash_plain(
     never win over a valid one (their index would be I32_MAX), so only
     valid lanes are hashed."""
     _batch, n_tb, k = _check_operands(midstate, tail, bounds, low_pos)
+    thresh = plain_threshold(thresh, th_word, midstate.device)
     pos = _pairs(low_pos)
     dev = midstate.device
     n_lanes = 10**k
@@ -127,7 +133,8 @@ def minhash_plain(
         m1 = int(h1[sel].min())
         mi = int(idx[sel & (h1 == m1)].min())
         best = min(best, (m0, m1, mi))
-    return torch.tensor(sieved(best, thresh), dtype=torch.int64, device=dev)
+    return torch.tensor(lower_word(th_word, sieved(best, thresh)), dtype=torch.int64,
+                        device=dev)
 
 
 def sieved(best: Sequence[int], thresh: Optional[int]) -> Tuple[int, int, int]:
@@ -137,6 +144,38 @@ def sieved(best: Sequence[int], thresh: Optional[int]) -> Tuple[int, int, int]:
     if thresh is not None and best[0] > thresh:
         return (U32_MAX, U32_MAX, I32_MAX)
     return tuple(int(v) for v in best)
+
+
+def check_th_word(thresh: Optional[int], th_word: Optional[torch.Tensor],
+                  device: torch.device) -> None:
+    """Raise unless ``th_word`` is None or a contiguous (1,) int32 tensor
+    on ``device``, passed without ``thresh``."""
+    if th_word is None:
+        return
+    if thresh is not None:
+        raise ValueError("pass the sieve threshold as thresh or as th_word, not both")
+    if (th_word.shape != (1,) or th_word.dtype != torch.int32
+            or th_word.device != device or not th_word.is_contiguous()):
+        raise ValueError(f"th_word must be a contiguous (1,) int32 tensor on {device}, got "
+                         f"{tuple(th_word.shape)} {th_word.dtype} on {th_word.device}")
+
+
+def plain_threshold(thresh: Optional[int], th_word: Optional[torch.Tensor],
+                    device: torch.device) -> Optional[int]:
+    """The threshold a plain version sieves with: ``thresh``, or the value
+    of the device word ``th_word`` (checked by :func:`check_th_word`)."""
+    check_th_word(thresh, th_word, device)
+    return thresh if th_word is None else int(th_word[0]) & U32_MAX
+
+
+def lower_word(th_word: Optional[torch.Tensor], out: Sequence[int]) -> Tuple[int, int, int]:
+    """Lower ``th_word`` in place to the h0 of the output ``out``, as the
+    kernels lower it (nothing for the sentinel or without a word); returns
+    ``out``."""
+    out = tuple(int(v) for v in out)
+    if th_word is not None and out[2] != I32_MAX and out[0] < int(th_word[0]) & U32_MAX:
+        th_word.fill_(out[0] - (1 << 32) if out[0] > I32_MAX else out[0])
+    return out
 
 
 def resume_point(low_pos: Sequence, n_tail_blocks: int) -> Tuple[int, int]:
@@ -151,20 +190,21 @@ def resume_point(low_pos: Sequence, n_tail_blocks: int) -> Tuple[int, int]:
     return divmod(min(words), 16)
 
 
-def _launch_args(midstate, tail, bounds, low_pos, thresh):
+def _launch_args(midstate, tail, bounds, low_pos, thresh, th_word=None):
     """What a kernel launch takes beyond the checked operands: raises on
-    non-contiguous operands or a threshold outside uint32, and returns the
-    digit (word, shift) ctypes arrays and the sieve's device word (None
-    without a threshold)."""
+    non-contiguous operands, a threshold outside uint32 or a bad
+    ``th_word``, and returns the digit (word, shift) ctypes arrays and the
+    sieve's device word: ``th_word`` itself, one filled from ``thresh``,
+    or None for the full fold."""
     for t in (midstate, tail, bounds):
         if not t.is_contiguous():
             raise ValueError("min-hash operands must be contiguous")
     if thresh is not None and not 0 <= thresh <= U32_MAX:
         raise ValueError(f"threshold {thresh} is not a uint32")
+    check_th_word(thresh, th_word, midstate.device)
     pos = _pairs(low_pos)
     words = (ctypes.c_int * len(pos))(*(w for w, _ in pos))
     shifts = (ctypes.c_int * len(pos))(*(s for _, s in pos))
-    th_word = None
     if thresh is not None:
         # The sieve's device word, int32 bits of the uint32 threshold.
         th_word = torch.full(
@@ -195,6 +235,7 @@ def minhash(
     bounds: torch.Tensor,
     low_pos: Sequence,
     thresh: Optional[int] = None,
+    th_word: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The min-hash of one dispatch (see the module docstring).
 
@@ -202,11 +243,11 @@ def minhash(
     kernel on the current stream (building it at first use) and return
     without synchronising; anything the kernel does not take raises."""
     if midstate.device.type == "cpu":
-        return minhash_plain(midstate, tail, bounds, low_pos, thresh)
+        return minhash_plain(midstate, tail, bounds, low_pos, thresh, th_word)
     if midstate.device.type != "cuda":
         raise ValueError(f"no min-hash kernel for device {midstate.device}")
     batch, n_tb, k = _check_operands(midstate, tail, bounds, low_pos)
-    words, shifts, th_word = _launch_args(midstate, tail, bounds, low_pos, thresh)
+    words, shifts, th_word = _launch_args(midstate, tail, bounds, low_pos, thresh, th_word)
     lib = _lib()
     dev = midstate.device
     # The C entry point launches on the calling thread's current device:
@@ -220,7 +261,7 @@ def minhash(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bmt_sha256_minhash(
             midstate.data_ptr(), tail.data_ptr(), bounds.data_ptr(), batch, n_tb, k,
-            words, shifts, *resume_point(low_pos, n_tb), int(thresh is not None),
+            words, shifts, *resume_point(low_pos, n_tb), int(th_word is not None),
             None if th_word is None else th_word.data_ptr(),
             partials.data_ptr(), out.data_ptr(), stream,
         )

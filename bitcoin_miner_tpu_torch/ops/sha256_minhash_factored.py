@@ -16,6 +16,7 @@ lane.  Result: the (3,) int64 ``(h0, h1, flat_idx)``, ``flat_idx = row *
 10^k + group * 10^k_in + lane`` (that is, ``row * 10^k + offset``), lowest
 index on a tie; with a threshold, that min only when its ``h0 <= thresh``;
 otherwise, or when no lane is valid, ``(U32_MAX, U32_MAX, I32_MAX)``.
+``th_word`` may stand for ``thresh`` as it does there.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from .sha256_minhash import (
     _check_operands,
     _launch_args,
     _pairs,
+    lower_word,
+    plain_threshold,
     sieved,
 )
 
@@ -66,6 +69,7 @@ def minhash_factored_plain(
     low_pos: Sequence,
     k_in: int,
     thresh: Optional[int] = None,
+    th_word: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The factored kernel's function in plain PyTorch, on the operands'
     device, computed through the real split.
@@ -78,6 +82,7 @@ def minhash_factored_plain(
     from the carried state (``group_state=``).  The min over valid lanes
     uses the remapped flat index; then the threshold is applied."""
     _batch, n_tb, k = _check_factored(midstate, tail, bounds, low_pos, k_in)
+    thresh = plain_threshold(thresh, th_word, midstate.device)
     split = _split(low_pos, k_in)
     owords, otab_np = outer_patch_table(split.outer_pos)
     fib, prefix_rounds = divmod(split.first_inner_word, 16)
@@ -142,7 +147,8 @@ def minhash_factored_plain(
             idx = torch.broadcast_to(rows.view(-1, 1, 1) * n_lanes + off, sel.shape)
             mi = int(idx[sel & (h1 == m1)].min())
             best = min(best, (m0, m1, mi))
-    return torch.tensor(sieved(best, thresh), dtype=torch.int64, device=dev)
+    return torch.tensor(lower_word(th_word, sieved(best, thresh)), dtype=torch.int64,
+                        device=dev)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -168,6 +174,7 @@ def minhash_factored(
     low_pos: Sequence,
     k_in: int,
     thresh: Optional[int] = None,
+    th_word: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The min-hash of one dispatch through the factored kernel (see the
     module docstring).
@@ -177,11 +184,11 @@ def minhash_factored(
     return without synchronising; anything the kernel does not take
     raises."""
     if midstate.device.type == "cpu":
-        return minhash_factored_plain(midstate, tail, bounds, low_pos, k_in, thresh)
+        return minhash_factored_plain(midstate, tail, bounds, low_pos, k_in, thresh, th_word)
     if midstate.device.type != "cuda":
         raise ValueError(f"no factored min-hash kernel for device {midstate.device}")
     batch, n_tb, k = _check_factored(midstate, tail, bounds, low_pos, k_in)
-    words, shifts, th_word = _launch_args(midstate, tail, bounds, low_pos, thresh)
+    words, shifts, th_word = _launch_args(midstate, tail, bounds, low_pos, thresh, th_word)
     lib = _lib()
     dev = midstate.device
     # The C entry point launches on the calling thread's current device:
@@ -196,7 +203,7 @@ def minhash_factored(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bmt_sha256_minhash_factored(
             midstate.data_ptr(), tail.data_ptr(), bounds.data_ptr(), batch, n_tb, k,
-            k_in, words, shifts, int(thresh is not None),
+            k_in, words, shifts, int(th_word is not None),
             None if th_word is None else th_word.data_ptr(),
             partials.data_ptr(), out.data_ptr(), stream,
         )

@@ -27,12 +27,19 @@ round prefix once (``default_factor_k_in``).  Tiny digit classes fold on
 the host: the native C++ sweep for ``sha256d`` (hashlib where it does not
 build), the workload's cpu-tier loop otherwise.  ``SweepPipeline(devices=)``
 shards each dispatch over several devices (``parallel/sweep.py`` holds the
-shards and the cascade).  Not ported yet: the hot plane.
+shards and the cascade).
+
+The hot plane (``hot=True``, OFF by default: :func:`auto_hot`): each job
+keeps its running ``(best, threshold)`` on the device, and every dispatch
+is the kernel launch(es) followed by ``ops/hot.py``'s merge into that
+carry on the same stream (:class:`_HotLoop`); the host reads a 2-word probe
+per dispatch and the carry once, at the job's end.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import os as _os
 import time as _time
@@ -42,10 +49,12 @@ from typing import Deque, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.metrics import METRICS
 from ..utils.platform import resolve_device
 from .blake2b import blake2b_minhash_plain
 from .blake2b import build_layout as build_blake2b_layout
 from .blake2b_minhash import blake2b_minhash
+from .hot import hot_merge, hot_merge_plain, new_carry
 from .sha256 import MsgLayout, build_layout
 from .sha256_minhash import minhash, minhash_plain
 from .sha256_minhash_factored import minhash_factored, minhash_factored_plain
@@ -246,6 +255,17 @@ def auto_tune(
     return backend, batch, max_k, sieve, factored
 
 
+def auto_hot(hot: Optional[bool], backend: str, family: str = "sha256") -> bool:
+    """Resolve the hot rung for a resolved ``backend`` and kernel ``family``.
+
+    ``hot=None`` is OFF on both rungs and both families, as in the
+    reference (its one recorded same-seed pair, on XLA:CPU, read 1.02):
+    the per-chunk path stays the default until a benchmark's repeated
+    pairs on the card decide, per rung and family.  Until then neither
+    argument changes the answer (``auto_tune`` has checked both)."""
+    return bool(hot)
+
+
 @dataclass(frozen=True)
 class HostFold:
     """A ``(hash, nonce)`` candidate computed on the host for a tiny digit
@@ -399,6 +419,226 @@ def _candidate(vals, bases, n_lanes) -> Optional[Tuple[int, int]]:
     return ((h0 << 32) | h1, bases[fi // n_lanes] + fi % n_lanes)
 
 
+def _on(device: torch.device, stream=None):
+    """Make ``device`` the thread's current device and ``stream`` its
+    current stream (no-op on the CPU): operand uploads, scratch and the
+    launch of one shard then all go to that shard's device."""
+    stack = contextlib.ExitStack()
+    if device.type == "cuda":
+        stack.enter_context(torch.cuda.device(device))
+        if stream is not None:
+            stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
+# --------------------------------------------------------------------------
+# The hot plane
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class _HotToken:
+    """One hot dispatch's handle through a sweep's ``consume``: its
+    sequence number, its probe ``(best_h0, best_seq)`` (on a card, a pinned
+    host copy and the event recorded after the copy; on the CPU, the probe
+    itself and None) and the enqueue stamp."""
+
+    seq: int
+    probe: torch.Tensor
+    event: Optional[object]
+    t_enq: float
+
+
+class _HotLoop:
+    """One job's hot dispatch plane, on one device or over shards.
+
+    Carried-state contract (the reference's ``make_hot_step``):
+
+    - The carry is a (5,) int64 device tensor ``(best_h0, best_h1,
+      best_seq, best_dev, best_flat)``, made vacant
+      (``ops.hot.new_carry``) and merged in place after every dispatch by
+      ``ops.hot.hot_merge`` (``hot_merge_plain`` on the torch rung) on the
+      stream of the first shard.  ``best_seq`` names the dispatch whose
+      ``(bases, 10^k)`` descriptor resolves ``best_flat`` to a nonce;
+      ``best_dev`` the shard, whose rows start at ``best_dev *
+      per_dev_batch``.  The host reads the carry once, in :meth:`finish`.
+    - With the sieve, each card has one (1,) int32 threshold word that its
+      shards' kernels take as ``th_word`` and lower in place; the merge
+      lowers the carry card's word to the carried h0, and another card's
+      word is copied from it on that card's stream.  Every other shard's
+      stream waits on the merge before its next launch, so a dispatch
+      sieves against the min through the previous dispatch at the
+      loosest (``kernel.thresh_staleness`` 1).  Pass 1 keeps ``h0 <=
+      thresh``, so an exact tie still reaches the merge.
+    - An exact ``(h0, h1)`` tie keeps the carried candidate: dispatches go
+      out in ascending nonce order (``run_sweep_dispatches``), so the
+      carried one has the lower nonce; within a dispatch the kernel keeps
+      the lowest flat index and the cascade the lowest shard.
+    - Each dispatch uploads its operands as the per-chunk path does
+      (``_to_device``: pinned staging that the caching host allocator
+      recycles once the copy has run, so nothing here waits on an upload)
+      and returns a 2-word probe copied into pinned memory behind the
+      merge: the host blocks on probes for backpressure, the dispatch
+      latency and pruning the descriptors.
+
+    ``devices``: the shards' devices (one entry on one device); ``streams``:
+    one per shard, or None for each device's current stream at dispatch.
+    Called from one dispatcher thread (``dispatch``) and one fetcher
+    thread (``drain``, ``finish``), in dispatch order."""
+
+    def __init__(self, backend: str, sieve: bool, devices: Sequence[torch.device], *,
+                 per_dev_batch: int, streams=None) -> None:
+        self._merge = hot_merge if backend == "cuda" else hot_merge_plain
+        self._sieve = sieve
+        self._devices = list(devices)
+        self._per_dev_batch = per_dev_batch
+        self._streams = streams
+        self._cuda = self._devices[0].type == "cuda"
+        self._carry: Optional[torch.Tensor] = None
+        self._merge_stream = None
+        #: device -> its (1,) int32 sieve threshold word (uint32 bits)
+        self._words: dict = {}
+        self._seq = 0
+        #: seq -> (bases, 10^k): resolves the carried winner's flat lane to
+        #: a nonce at the job's end; pruned by probe drains to O(in flight).
+        self._bases: dict = {}
+
+    @property
+    def carry(self) -> Optional[torch.Tensor]:
+        """The carry tensor itself (for identity checks; reading its values
+        is :meth:`finish`'s alone)."""
+        return self._carry
+
+    def _start(self, streams) -> None:
+        """Make the carry (on the first shard's stream) and, with the sieve,
+        each card's threshold word at U32_MAX on the stream of the card's
+        first shard; every other shard stream on that card waits on it."""
+        made = {}
+        for i, dev in enumerate(self._devices):
+            if dev in made:
+                if self._cuda and streams[i] != streams[made[dev][0]]:
+                    streams[i].wait_event(made[dev][1])
+                continue
+            with _on(dev, streams[i]):
+                if i == 0:
+                    self._carry = new_carry(dev)
+                if self._sieve:
+                    self._words[dev] = torch.full((1,), -1, dtype=torch.int32, device=dev)
+                ev = None
+                if self._cuda:
+                    ev = torch.cuda.Event()
+                    ev.record(streams[i])
+            made[dev] = (i, ev)
+
+    def dispatch(self, kern, midstate, tail_const, bounds) -> _HotToken:
+        """Queue one dispatch: the uploads and the kernel on each shard's
+        stream, then the merge and the probe's copy on the first shard's.
+        Nothing waits on the device."""
+        seq = self._seq
+        if seq > I32_MAX:
+            raise OverflowError(f"hot sweep dispatch {seq} overflows the carry's int32 seq")
+        self._seq = seq + 1
+        streams = [None] * len(self._devices)
+        if self._cuda:
+            streams = list(self._streams) if self._streams is not None else [
+                torch.cuda.current_stream(dev) for dev in self._devices]
+        if self._carry is None:
+            self._start(streams)
+        METRICS.inc("sweep.ring_refills")
+        pdb = self._per_dev_batch
+        carry_dev = self._devices[0]
+        outs, ready = [], []
+        for i, (dev, stream) in enumerate(zip(self._devices, streams)):
+            with _on(dev, stream):
+                ops = [midstate] + [a[i * pdb:(i + 1) * pdb] for a in (tail_const, bounds)]
+                out = kern(*(_to_device(a, dev) for a in ops), th_word=self._words.get(dev))
+                if dev != carry_dev:
+                    # The output goes to the merge's card, behind the kernel.
+                    with _on(carry_dev, streams[0]):
+                        out = out.to(carry_dev, non_blocking=True)
+                if stream != streams[0]:
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                    ready.append((out, ev))
+            outs.append(out)
+        self._merge_stream = streams[0]
+        with _on(carry_dev, streams[0]):
+            for out, ev in ready:
+                streams[0].wait_event(ev)
+                out.record_stream(streams[0])
+            words = [self._words[carry_dev]] if self._sieve else []
+            probe = self._merge(outs, seq, self._carry, words)
+            event = None
+            if self._cuda:
+                host_probe = torch.empty(2, dtype=torch.int64, pin_memory=True)
+                host_probe.copy_(probe, non_blocking=True)
+                probe, event = host_probe, torch.cuda.Event()
+                event.record(streams[0])
+                self._after_merge(streams, event)
+        METRICS.inc("sweep.donated_dispatches")
+        if self._sieve:
+            METRICS.set_gauge("kernel.thresh_staleness", 1.0)
+        return _HotToken(seq=seq, probe=probe, event=event, t_enq=_time.monotonic())
+
+    def _after_merge(self, streams, event) -> None:
+        """Order every other shard stream's next launch after the merge
+        (``event``, recorded on ``streams[0]``).  On another card the first
+        such stream also copies the merged threshold word into that card's
+        word, and the card's other streams wait on that copy.  Called
+        inside the merge stream's context, so a copy across cards is
+        ordered on both cards' streams."""
+        carry_dev = self._devices[0]
+        after = {carry_dev: event}
+        for i, dev in enumerate(self._devices):
+            if streams[i] == streams[0]:
+                continue
+            if dev in after:
+                streams[i].wait_event(after[dev])
+                continue
+            streams[i].wait_event(event)
+            if self._sieve:
+                with _on(dev, streams[i]):
+                    self._words[dev].copy_(self._words[carry_dev], non_blocking=True)
+            after[dev] = torch.cuda.Event()
+            after[dev].record(streams[i])
+
+    def drain(self, token: _HotToken, bases, n_lanes: int) -> float:
+        """Block on one dispatch's probe: register its descriptor, prune
+        every descriptor the carry can no longer name, and report the
+        dispatch's enqueue-to-probe time.  Tokens drain in dispatch
+        order."""
+        self._bases[token.seq] = (bases, n_lanes)
+        if token.event is not None:
+            token.event.synchronize()  # blocks until the merge's probe lands
+        _best_h0, best_seq = token.probe.tolist()
+        # The final winner is this probe's best_seq or a later dispatch
+        # (the carry moves only to strictly better, later candidates).
+        for s in [s for s in self._bases if s <= token.seq and s != best_seq]:
+            del self._bases[s]
+        dt = _time.monotonic() - token.t_enq
+        METRICS.observe("hist.device_dispatch_s", dt)
+        return dt
+
+    def finish(self) -> Optional[Tuple[int, int]]:
+        """The job's one read of the carry, resolved to ``(hash, nonce)``;
+        None when no dispatch ran or none produced a valid lane.  Call it
+        after every token has drained."""
+        if self._carry is None:
+            return None
+        with _on(self._devices[0], self._merge_stream):
+            bh0, bh1, bseq, bdev, bflat = self._carry.tolist()  # the one carry read
+        if bflat == I32_MAX:
+            return None
+        entry = self._bases.get(bseq)
+        if entry is None:
+            # Reachable only when a drain was dropped (the injected wedge,
+            # a close mid-job): the winning dispatch's descriptor is gone.
+            raise RuntimeError("hot sweep winner's descriptor was never drained")
+        bases, n_lanes = entry
+        row = bdev * self._per_dev_batch + bflat // n_lanes
+        return ((bh0 << 32) | bh1, bases[row] + bflat % n_lanes)
+
+
 #: Device-runtime fault injection: ``BMT_WEDGE_DISPATCH=N`` makes the N-th
 #: result fetched by the FIRST armed pipeline in this process hang until
 #: that pipeline is closed — what a wedged device looks like from outside.
@@ -427,6 +667,12 @@ class SweepPipeline:
     lowest-(device, flat) cascade and folds.  ``devices=None`` is the
     single-device pipeline on ``device``.
 
+    ``hot=True`` (see :func:`auto_hot`): each job gets a :class:`_HotLoop`
+    on the same streams; its tokens go through the same fetch queue (so the
+    backpressure and the ``BMT_WEDGE_DISPATCH`` drill are unchanged), and
+    the job's ``finish`` runs at its ``_DONE``, failing that job alone if
+    it raises.
+
     The reference warms each digit class's kernel ahead of time; here one
     binary serves every class and builds on the first dispatch, so there is
     nothing to prewarm.  ``submit`` is thread-safe.
@@ -447,6 +693,7 @@ class SweepPipeline:
         factored: Optional[bool] = None,
         workload=None,
         devices=None,
+        hot: Optional[bool] = None,
     ) -> None:
         import queue as _queue
         import threading
@@ -465,6 +712,7 @@ class SweepPipeline:
          self._factored) = auto_tune(
             backend, batch, max_k, sieve, self._device, factored, self._family
         )
+        self._hot = auto_hot(hot, self._backend, self._family)
         self._per_dev_batch = self._batch
         self._streams = None
         if self._devices is not None:
@@ -545,8 +793,6 @@ class SweepPipeline:
         return sharded_candidate(vals, bases, n_lanes, self._per_dev_batch, world)
 
     def _dispatch_loop(self) -> None:
-        import contextlib
-
         ctx = (
             torch.cuda.stream(self._stream) if self._stream is not None
             else contextlib.nullcontext()
@@ -562,8 +808,16 @@ class SweepPipeline:
                 return
             data, lower, upper, fut = item
             state = {"best": [], "lanes": 0, "fut": fut}
+            if self._hot:
+                state["hot"] = _HotLoop(
+                    self._backend, self._sieve, self._devices or [self._device],
+                    per_dev_batch=self._per_dev_batch,
+                    streams=self._streams if self._stream is None else [self._stream],
+                )
 
             def run_kernel(kern, midstate, tail_const, bounds):
+                if self._hot:
+                    return state["hot"].dispatch(kern, midstate, tail_const, bounds)
                 th = None
                 if self._sieve:
                     # The running-min h0 at ENQUEUE time (the fetcher
@@ -638,6 +892,14 @@ class SweepPipeline:
             if out is self._DONE:
                 if not fut.done():  # not already failed by the dispatcher
                     best = state["best"]
+                    try:
+                        if self._hot:
+                            cand = state["hot"].finish()
+                            if cand is not None:
+                                _fold(best, cand)
+                    except BaseException as e:
+                        self._fail(fut, e)
+                        continue
                     if not best:
                         self._fail(
                             fut, RuntimeError("sweep produced no candidates")
@@ -657,6 +919,9 @@ class SweepPipeline:
                 _fold(state["best"], (out.hash, out.nonce))
                 continue
             try:
+                if isinstance(out, _HotToken):
+                    state["hot"].drain(out, bases, n_lanes)
+                    continue
                 vals, ev, _t_enq = out
                 if self._devices is not None:
                     cand = self._sharded_candidate(vals, bases, n_lanes)
@@ -683,6 +948,7 @@ def sweep_min_hash(
     sieve: Optional[bool] = None,
     factored: Optional[bool] = None,
     workload=None,
+    hot: Optional[bool] = None,
 ) -> SweepResult:
     """Find ``(min Hash(data, n), argmin n)`` over inclusive ``[lower,
     upper]``.  Bit-exact vs the hashlib oracle
@@ -693,18 +959,24 @@ def sweep_min_hash(
     ``device``: None is the CUDA card (raises without one); ``"cpu"`` runs
     the plain version.  ``backend``/``batch``/``max_k``/``sieve``/
     ``factored``: see :func:`auto_tune`.  ``workload``: see
-    :func:`_workload_knobs`.
+    :func:`_workload_knobs`.  ``hot``: see :func:`auto_hot`; host-folded
+    classes fold on the host, and the carry's candidate joins them at the
+    end.
     """
     sep, host_min, family = _workload_knobs(workload)
     dev = resolve_device(device)
     backend, batch, max_k, sieve, factored = auto_tune(
         backend, batch, max_k, sieve, dev, factored, family)
     best: List[Tuple[int, int]] = []  # [(hash, nonce)] — current minimum
+    hotloop = (_HotLoop(backend, sieve, [dev], per_dev_batch=batch)
+               if auto_hot(hot, backend, family) else None)
 
     def get_kernel(layout, group):
         return _build_kernel(backend, layout, group, factored)
 
     def run_kernel(kern, midstate, tail_const, bounds):
+        if hotloop is not None:
+            return hotloop.dispatch(kern, midstate, tail_const, bounds)
         th = None
         if sieve:
             # The running-min h0 at enqueue time; queued dispatches may
@@ -716,6 +988,9 @@ def sweep_min_hash(
         if isinstance(out, HostFold):
             _fold(best, (out.hash, out.nonce))
             return
+        if isinstance(out, _HotToken):
+            hotloop.drain(out, bases, n_lanes)
+            return
         cand = _candidate(out.tolist(), bases, n_lanes)
         if cand is not None:
             _fold(best, cand)
@@ -724,6 +999,10 @@ def sweep_min_hash(
         data, lower, upper, max_k, batch, get_kernel, run_kernel, consume,
         host_lane_budget=host_lane_budget, sep=sep, host_min=host_min, family=family,
     )
+    if hotloop is not None:
+        cand = hotloop.finish()
+        if cand is not None:
+            _fold(best, cand)
     if not best:
         raise RuntimeError("sweep produced no candidates")
     return SweepResult(hash=best[0][0], nonce=best[0][1], lanes_swept=lanes)

@@ -23,11 +23,15 @@ each shard's kernel lowers its own device word.  A shard with no survivor
 returns the sentinel ``(U32_MAX, U32_MAX, I32_MAX)``, which the cascade
 orders last: no survivor means every lane there exceeds the threshold,
 and any other shard's survivor is at or below it.
+
+With ``hot=True`` (``ops.sweep._HotLoop`` over the shards) the shard
+outputs never come back to the host: they reach ``ops.hot.hot_merge`` on
+the first shard's card, which runs the same cascade there and merges it
+into the job's carry; the threshold is the carried h0, one word per card.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -42,8 +46,12 @@ from ..ops.sweep import (
     SweepResult,
     _build_kernel,
     _fold,
+    _HotLoop,
+    _HotToken,
+    _on,
     _to_device,
     _workload_knobs,
+    auto_hot,
     auto_tune,
     run_sweep_dispatches,
 )
@@ -113,18 +121,6 @@ def shard_operands(tail_const: np.ndarray, bounds: np.ndarray, n_local: int,
     return out
 
 
-def _on(device: torch.device, stream=None):
-    """Make ``device`` the thread's current device and ``stream`` its
-    current stream (no-op on the CPU): operand uploads, scratch and the
-    launch of one shard then all go to that shard's device."""
-    stack = contextlib.ExitStack()
-    if device.type == "cuda":
-        stack.enter_context(torch.cuda.device(device))
-        if stream is not None:
-            stack.enter_context(torch.cuda.stream(stream))
-    return stack
-
-
 def sharded_invoke(kern, midstate, tail_const, bounds, devices, per_dev_batch: int,
                    thresh: Optional[int] = None, streams=None, first: int = 0) -> List:
     """Queue one sharded dispatch: each local shard's rows go to its
@@ -180,8 +176,12 @@ def sweep_min_hash_sharded(
     single-device kernel of the class (``ops.sweep._build_kernel``).
     ``factored`` is honoured on the cuda rung, unlike the reference's
     sharded pallas branch, which ignores it because the TPU's factored
-    kernel is compiled per class; the port's is one binary for every class.  ``hot=True`` raises: the hot
-    plane is not ported.  ``host_lane_budget``: see
+    kernel is compiled per class; the port's is one binary for every class.
+    ``hot``: the hot plane (``ops.sweep.auto_hot``; None is OFF): one
+    carry on the first shard's card, merged after every dispatch by
+    ``ops.hot.hot_merge`` from the shards' outputs; with a multi-process
+    ``world`` it raises (the multihost miner runs per-chunk only, as the
+    reference's does).  ``host_lane_budget``: see
     ``ops.sweep.run_sweep_dispatches`` (0, the default, sends every class to
     the devices, as the reference's sharded sweep does).  ``world``: this
     process's place in a multi-process miner (``parallel.multihost``); None
@@ -190,14 +190,17 @@ def sweep_min_hash_sharded(
     ``stats``, if given, is filled with ``dispatches`` (count) and
     ``fetch_wait_seconds`` (host time blocked on result fetches).
     """
-    if hot:
-        raise ValueError("hot plane not ported")
+    if hot and world is not None and world.pmin is not None:
+        raise ValueError("hot=True is not available with a multi-process world (the "
+                         "multihost miner): its carry would need a cross-process merge")
     devs = default_devices() if devices is None else resolve_devices(devices)
     sep, host_min, family = _workload_knobs(workload)
     backend, per_dev, max_k, sieve, factored = auto_tune(
         backend, batch_per_device, max_k, sieve, devs[0], factored, family)
     if world is None:
         world = World(offset=0, n_shards=len(devs))
+    hotloop = (_HotLoop(backend, sieve, devs, per_dev_batch=per_dev)
+               if auto_hot(hot, backend, family) else None)
     best: List[Tuple[int, int]] = []
     if stats is not None:
         stats.update(dispatches=0, fetch_wait_seconds=0.0)
@@ -208,6 +211,8 @@ def sweep_min_hash_sharded(
     def run_kernel(kern, midstate, tail_const, bounds):
         if stats is not None:
             stats["dispatches"] += 1
+        if hotloop is not None:
+            return hotloop.dispatch(kern, midstate, tail_const, bounds)
         th = None
         if sieve:
             # The running-min h0 at enqueue time; a stale (looser) read is
@@ -221,9 +226,15 @@ def sweep_min_hash_sharded(
             _fold(best, (out.hash, out.nonce))
             return
         t0 = time.perf_counter()
-        vals = [o.tolist() for o in out]  # blocks until each shard lands
+        if isinstance(out, _HotToken):
+            hotloop.drain(out, bases, n_lanes)  # blocks until the probe lands
+            vals = None
+        else:
+            vals = [o.tolist() for o in out]  # blocks until each shard lands
         if stats is not None:
             stats["fetch_wait_seconds"] += time.perf_counter() - t0
+        if vals is None:
+            return
         cand = _candidate(vals, bases, n_lanes, per_dev, world)
         if cand is not None:
             _fold(best, cand)
@@ -233,6 +244,10 @@ def sweep_min_hash_sharded(
         consume, host_lane_budget=host_lane_budget, sep=sep, host_min=host_min,
         family=family,
     )
+    if hotloop is not None:
+        cand = hotloop.finish()
+        if cand is not None:
+            _fold(best, cand)
     if not best:
         raise RuntimeError("sharded sweep produced no candidates")
     return SweepResult(hash=best[0][0], nonce=best[0][1], lanes_swept=lanes)

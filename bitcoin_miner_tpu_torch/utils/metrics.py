@@ -316,8 +316,11 @@ def format_quantiles(h) -> str:
 #:   hist.request_s            request→result latency at the gateway (s; no gateway
 #:                             in the port yet, so the health line prints -/-/-)
 #:   hist.chunk_rtt_s          chunk dispatch→Result round-trip (s)
-#:   hist.device_dispatch_s    per-dispatch device enqueue→fetch time (s; read by the
-#:                             adaptive depth, fed by nothing in the port yet)
+#:   hist.device_dispatch_s    per-dispatch device enqueue→probe time (s; read by the
+#:                             adaptive depth, fed by the hot plane's drain)
+#:   sweep.ring_refills        chunk descriptors the hot plane uploads (one per dispatch)
+#:   sweep.donated_dispatches  dispatches merged into a hot plane's device carry
+#:   kernel.thresh_staleness   sieve-threshold lag in dispatches (gauge; 1 = device-resident)
 #:   gauge.miners_live         miners currently joined to the scheduler
 #:   gauge.inflight_chunks     chunks outstanding at miners right now
 #:   gauge.admission_backlog   requests parked in the admission queue

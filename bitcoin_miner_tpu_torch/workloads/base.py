@@ -145,20 +145,21 @@ class Workload:
 
     def make_async_search(self, tier: str, device=None, *,
                           devices: Optional[int] = None,
-                          host_lane_budget: Optional[int] = None):
+                          host_lane_budget: Optional[int] = None,
+                          hot: Optional[bool] = None):
         """An async search (``submit(data, lo, hi) -> Future``) on ``tier``,
         the shape ``apps.miner.run_miner`` serves Requests with: device
         tiers ride the cross-request ``SweepPipeline``, host tiers a
-        one-worker FIFO pool.  ``host_lane_budget``: see ``SweepPipeline``
-        (None = auto).  ``devices``: as for :meth:`make_search`, through
-        ``SweepPipeline(devices=)``."""
+        one-worker FIFO pool.  ``host_lane_budget`` and ``hot``: see
+        ``SweepPipeline`` (None = auto).  ``devices``: as for
+        :meth:`make_search`, through ``SweepPipeline(devices=)``."""
         self._check_tier(tier, devices)
         from ..apps import miner as miner_mod
 
         if tier in DEVICE_TIERS:
             return miner_mod._PipelineSearch(
                 tier, device=device, host_lane_budget=host_lane_budget, workload=self,
-                devices=devices if _sharded(devices) else None,
+                devices=devices if _sharded(devices) else None, hot=hot,
             )
         return miner_mod._PoolSearch(self.make_search(tier))
 

@@ -9,7 +9,7 @@ Phases (any failure ends the run non-zero, with no result line):
 
 1. environment — the card's name and power limit (nvidia-smi) and
    torch.cuda.get_device_name(0);
-2. build — the three kernel sources in bitcoin_miner_tpu_torch/csrc, one
+2. build — the four kernel sources in bitcoin_miner_tpu_torch/csrc, one
    nvcc each, and the native host sweep (g++), all started together, for
    sm_90a, printing ``-Xptxas -v`` (registers, spills) and the static SASS
    mix per kernel;
@@ -75,7 +75,21 @@ Phases (any failure ends the run non-zero, with no result line):
    ``sweep_min_hash`` over the same range (the short one to
    ``min_hash_range``); each job's time to Result, nonces/s and Requests
    sent (from the server's trace), each miner's launch counts;
-13. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+13. hot path — the hot plane's merge kernel against its plain version,
+   bit-exact, over seeded sequences and random carries with one and two
+   shard outputs (ties, sentinels, a vacant carry against h0 == U32_MAX);
+   ``sweep_min_hash(hot=True)`` against the per-chunk sweep on 1e9-nonce
+   Requests of the three kernels' paths, and against the oracle on small
+   ranges across digit boundaries, across 10^19 and up to 2^64 - 1, both
+   sieve forms; ``SweepPipeline(hot=True)`` over back-to-back jobs, one
+   wholly host-folded; two shards on cuda:0 with ``hot=True`` against one
+   device; the miner over LSP through ``make_async_search("cuda",
+   hot=True)``, each Result equal to the per-chunk miner's, the merge
+   launched once per kernel launch; a U H H U pair of 1e9 Requests
+   (per-chunk, hot) in nonces/s; the merge's device time per launch (a
+   CUDA Graph of launches) beside an empty kernel's timed the same way,
+   the host's issue time per launch and its plain version's;
+14. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
@@ -93,6 +107,7 @@ Prints the kernels' JSON line, then the nvidia-smi line, then
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -111,6 +126,8 @@ F_REPLACES = "bitcoin_miner_tpu/ops/pallas_sha256.py:536"
 F_SOURCE = "bitcoin_miner_tpu_torch/csrc/sha256_minhash_factored.cu"
 B_REPLACES = "bitcoin_miner_tpu/ops/blake2b.py::make_blake2b_kernel_body"
 B_SOURCE = "bitcoin_miner_tpu_torch/csrc/blake2b_minhash.cu"
+H_REPLACES = "bitcoin_miner_tpu/ops/sweep.py:962"  # make_hot_step's _merge (:924)
+H_SOURCE = "bitcoin_miner_tpu_torch/csrc/hot_merge.cu"
 # BLAKE2b layouts at d = 10: 120 bytes + separator puts the low digits
 # across the 128-byte block boundary (two tail blocks, both per lane); 126
 # puts them all in the second (the first once per CUDA block); 200 folds
@@ -350,11 +367,13 @@ def smi(query: str) -> str:
 
 def kernel_label(mangled: str):
     """``minhash_kernel<NB, FB, sieve>`` / ``factored_kernel<NB, FIB, sieve>``
-    / ``blake2b_kernel<NB, FB, sieve>`` for a mangled kernel name, else None."""
+    / ``blake2b_kernel<NB, FB, sieve>`` / ``hot_merge_kernel`` /
+    ``empty_kernel`` for a mangled kernel name, else None."""
     t = re.search(r"(minhash_kernel|factored_kernel|blake2b_kernel)ILi(\d)E(?:Li(\d)E)?Lb([01])E",
                   mangled)
     if not t:
-        return None
+        t = re.search(r"\d(hot_merge_kernel|empty_kernel)E", mangled)
+        return t.group(1) if t else None
     args = [t.group(2)] + ([t.group(3)] if t.group(3) else [])
     return f"{t.group(1)}<{', '.join(args)}, {'true' if t.group(4) == '1' else 'false'}>"
 
@@ -432,6 +451,8 @@ class Smoke:
         self.multihost = {}  # the multihost miner's ranks
         self.native = {}  # the native host sweep's numbers
         self.serving = {}  # the serving path's jobs, times and launches
+        self.h_stats = {}  # the hot merge kernel's
+        self.hot = {}  # the hot path's launches, rates and checks
 
     # ------------------------------------------------------------ helpers
 
@@ -471,6 +492,35 @@ class Smoke:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps, out.tolist()
 
+    def graph_time(self, fn, reps: int, replays: int = 5) -> float:
+        """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+        Graph, replayed ``replays`` times between CUDA events, the fastest
+        replay over ``reps``.  The host issues nothing per call, so this
+        is the card's time for the launches, not the host's."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm on a side stream, as capture asks
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(replays):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b) / reps)
+        return best
+
     # ------------------------------------------------------------- phases
 
     def phase_env(self) -> None:
@@ -500,7 +550,7 @@ class Smoke:
 
         threads = [threading.Thread(target=one, args=(n,))
                    for n in ("sha256_minhash", "sha256_minhash_factored", "blake2b_minhash",
-                             "native")]
+                             "hot_merge", "native")]
         for t in threads:
             t.start()
         for t in threads:
@@ -514,7 +564,8 @@ class Smoke:
             f"{native.have_shani()}")
         for name, stats in (("sha256_minhash", self.k_stats),
                             ("sha256_minhash_factored", self.f_stats),
-                            ("blake2b_minhash", self.b_stats)):
+                            ("blake2b_minhash", self.b_stats),
+                            ("hot_merge", self.h_stats)):
             stats["sass"] = sass_mix(paths[name], _build.nvcc_path())
             stats["ptxas"] = ptxas_stats(paths[name].with_suffix(".log").read_text())
             for kern, mix in stats["sass"].items():
@@ -1370,6 +1421,226 @@ class Smoke:
             shutil.copytree(work, keep, dirs_exist_ok=True)
             shutil.rmtree(work, ignore_errors=True)
 
+    def phase_hot_path(self) -> None:
+        """The hot plane: (a) the merge kernel against its plain version;
+        (b) hot sweeps against per-chunk ones and the oracle; (c) the hot
+        pipeline; (d) two shards on cuda:0; (e) the miner over LSP; (f) a
+        U H H U pair of 1e9 Requests; (g) the merge's time per launch."""
+        import numpy as np
+
+        from bitcoin_miner_tpu_torch import lsp, workloads
+        from bitcoin_miner_tpu_torch.apps import miner
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce, min_hash_range
+        from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+        from bitcoin_miner_tpu_torch.ops.hot import (
+            empty_launch, hot_merge, hot_merge_plain, new_carry)
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
+        from bitcoin_miner_tpu_torch.ops.sweep import SweepPipeline, sweep_min_hash
+        from bitcoin_miner_tpu_torch.parallel import sweep_min_hash_sharded
+
+        torch, dev = self.torch, self.dev
+        # (a) the merge: seeded sequences from a vacant carry, then single
+        # steps from random carries; values from a small set so ties occur.
+        rng = np.random.default_rng(9)
+        hs = [0, 1, 2, 7, U32_MAX - 1, U32_MAX]
+        sentinel = (U32_MAX, U32_MAX, I32_MAX)
+
+        def draw():
+            if rng.random() < 0.25:
+                return sentinel
+            return (int(rng.choice(hs)), int(rng.choice(hs)), int(rng.integers(0, 50)))
+
+        n_cases = max_err = 0
+        for n in (1, 2):
+            for sieve in (False, True):
+                cases = [(None, [[(U32_MAX, U32_MAX, 5)] + [sentinel] * (n - 1)]
+                          + [[draw() for _ in range(n)] for _ in range(199)])]
+                cases += [([int(rng.choice(hs)), int(rng.choice(hs)), int(rng.integers(0, 9)),
+                            int(rng.integers(0, 2)), int(rng.integers(0, 50))],
+                           [[draw() for _ in range(n)]]) for _ in range(100)]
+                for start, steps in cases:
+                    carry, ref = new_carry(dev), new_carry(dev)
+                    if start is not None:
+                        carry.copy_(torch.tensor(start))
+                        ref.copy_(carry)
+                    words = [torch.full((1,), -1, dtype=torch.int32, device=dev)
+                             for _ in range(2)]
+                    for seq, outs in enumerate(steps):
+                        outs = [torch.tensor(o, device=dev) for o in outs]
+                        got = hot_merge(outs, seq + 9, carry, words[:1] if sieve else [])
+                        want = hot_merge_plain(outs, seq + 9, ref, words[1:] if sieve else [])
+                        torch.cuda.synchronize()
+                        n_cases += 1
+                        err = max(int((a - b).abs().max()) for a, b in (
+                            (got, want), (carry, ref), (words[0], words[1])))
+                        max_err = max(max_err, err)
+                        if err:
+                            raise AssertionError(
+                                f"hot_merge != plain (n={n}, sieve={sieve}, step {seq}): "
+                                f"{got.tolist()} {carry.tolist()} {words[0].tolist()} vs "
+                                f"{want.tolist()} {ref.tolist()} {words[1].tolist()}")
+        self.h_stats["max_abs_err"] = max_err
+        log(f"hot_merge == plain, bit-exact, in {n_cases} steps (N 1 and 2, both forms, "
+            f"vacant and random carries; tolerance 0)")
+
+        # (b) hot against per-chunk on 1e9 Requests of each kernel's path,
+        # and against the oracle on small ranges.
+        b2, sha = workloads.get("blake2b64"), workloads.get("sha256d")
+        paths = [("sha256d", "cmu440", sha, False, minhash),
+                 ("sha256d", FIB1_DATA, sha, False, minhash),
+                 ("blake2b64", "cmu440", b2, False, blake2b_minhash),
+                 ("sha256d factored", FIB1_DATA, sha, True, minhash_factored)]
+        kernels = (minhash, minhash_factored, blake2b_minhash)
+        for label, data, w, factored, kern in paths:
+            kw = dict(device=dev, workload=w, factored=factored)
+            n0, m0, k0 = sum(k.launches for k in kernels), hot_merge.launches, kern.launches
+            got = sweep_min_hash(data, 0, 10**9 - 1, hot=True, **kw)
+            # Every kernel launch (the factored path's d = 1 class takes the
+            # unfactored kernel) is followed by one merge.
+            launched = (sum(k.launches for k in kernels) - n0, hot_merge.launches - m0)
+            want = sweep_min_hash(data, 0, 10**9 - 1, **kw)
+            ok = (got.hash, got.nonce, got.lanes_swept) == (want.hash, want.nonce,
+                                                            want.lanes_swept)
+            log(f"  {label} {data[:12]!r}[0, 999999999] hot {(got.hash, got.nonce)} == "
+                f"per-chunk: {'OK' if ok else 'MISMATCH'}; launches (kernel, merge) {launched}")
+            if not ok or launched[0] != launched[1] or kern.launches == k0:
+                raise AssertionError(f"{label}: hot {got} / per-chunk {want}, {launched}")
+        small = [(985, 101_234, dict(max_k=3, batch=4)), (10**19 - 40, 10**19 + 25, {}),
+                 (2**64 - 60, 2**64 - 1, {})]
+        for label, _data, w, factored, _kern in paths[::2] + paths[3:]:
+            for lo, hi, kw in small:
+                want = w.min_range("hot", lo, hi)
+                for sieve in (False, True):
+                    got = sweep_min_hash("hot", lo, hi, device=dev, workload=w, hot=True,
+                                         factored=factored, sieve=sieve, **kw)
+                    if (got.hash, got.nonce, got.lanes_swept) != (*want, hi - lo + 1):
+                        raise AssertionError(f"{label} [{lo}, {hi}] sieve={sieve}: hot {got} "
+                                             f"!= oracle {want}")
+                    n_cases += 1
+        log(f"hot sweeps == oracle on small ranges, across 10^19 and up to 2^64 - 1, "
+            f"both forms, three kernels")
+
+        # (c) the hot pipeline: back-to-back jobs, one wholly host-folded.
+        jobs = [("cmu440", 0, 99_999), ("cmu440", 10**9, 2 * 10**9 - 1),
+                (FIB1_DATA, 0, 999_999_999), ("cmu440", 999_900_000, 1_000_099_999)]
+        p = SweepPipeline(backend="cuda", hot=True)
+        try:
+            futs = [(job, p.submit(*job)) for job in jobs]
+            for job, fut in futs:
+                r = fut.result(timeout=300)
+                want = (min_hash_range(*job) if job[2] - job[1] < 10**6
+                        else sweep_min_hash(*job, device=dev))
+                want = want if isinstance(want, tuple) else (want.hash, want.nonce)
+                if (r.hash, r.nonce) != want or r.lanes_swept != job[2] - job[1] + 1:
+                    raise AssertionError(f"hot pipeline {job[0][:12]!r}{job[1:]}: {r} != {want}")
+                log(f"  hot pipeline {job[0][:12]!r}[{job[1]}, {job[2]}] -> {(r.hash, r.nonce)} OK")
+        finally:
+            p.close()
+
+        # (d) two shards on cuda:0 with hot=True against one device.
+        for label, data, w, factored, _kern in paths:
+            kw = dict(workload=w, factored=factored)
+            one = sweep_min_hash(data, 0, 10**9 - 1, device=dev, **kw)
+            got = sweep_min_hash_sharded(data, 0, 10**9 - 1, devices=[dev, dev], hot=True, **kw)
+            if (got.hash, got.nonce, got.lanes_swept) != (one.hash, one.nonce, one.lanes_swept):
+                raise AssertionError(f"{label}: two hot shards {got} != one device {one}")
+            log(f"  {label} {data[:12]!r}[0, 999999999] two hot shards on cuda:0 == one "
+                f"device OK")
+
+        # (e) the miner over LSP with the hot rung on.
+        def hot_miner(server):
+            client = lsp.Client("127.0.0.1", server.port)
+            try:
+                miner.run_miner(client, miner.make_async_search("cuda", hot=True))
+            finally:
+                try:
+                    client.close()
+                except lsp.LspError:
+                    pass
+            return 0
+
+        argv = ["--backend", "cuda", "hot=True"]
+        _folds, _rates, launches = self.drive_miner(
+            argv, [("cmu440", 999_999_999)], hash_nonce, min_hash_range,
+            (minhash, minhash_factored, blake2b_minhash, hot_merge), run=hot_miner)
+        self.same_as_single_device(" ".join(argv))
+        log(f"miner hot=True over LSP: every Result equals the per-chunk miner's; "
+            f"launches {launches}")
+        if launches["hot_merge"] <= 0 or launches["hot_merge"] != launches["minhash"]:
+            raise AssertionError(f"hot miner: merge launches != kernel launches: {launches}")
+        self.h_stats["launches"] = launches["hot_merge"]
+        self.hot["launches_miner"] = launches
+
+        # (f) U H H U: nonces/s per 1e9 Request, per-chunk against hot.
+        pipes = {"per-chunk": SweepPipeline(backend="cuda"),
+                 "hot": SweepPipeline(backend="cuda", hot=True)}
+        try:
+            for pp in pipes.values():  # warm: streams and pinned buffers
+                pp.submit("cmu440", 2 * 10**9, 2 * 10**9 + 10**6 - 1).result(timeout=300)
+            lo, hi = 10**9, 2 * 10**9 - 1
+            rates, found = {}, set()
+            for name in ("per-chunk", "hot", "hot", "per-chunk"):
+                t0 = time.monotonic()
+                r = pipes[name].submit("cmu440", lo, hi).result(timeout=300)
+                dt = time.monotonic() - t0
+                if r.hash != hash_nonce("cmu440", r.nonce):
+                    raise AssertionError(f"{name}: bad result {r}")
+                found.add((r.hash, r.nonce))
+                rates.setdefault(name, []).append((hi - lo + 1) / dt)
+            if len(found) != 1:
+                raise AssertionError(f"per-chunk and hot disagree: {found}")
+        finally:
+            for pp in pipes.values():
+                pp.close()
+        self.hot["request_pair_u_h_h_u"] = rates
+        log(f"nonces/s per 1e9 Request 'cmu440'[{lo}, {hi}], U H H U: per-chunk "
+            f"{rates['per-chunk']}, hot {rates['hot']} [{self.card}]")
+
+        # (g) the merge per launch on the device (a CUDA Graph of many
+        # launches, replayed between CUDA events), an empty kernel timed the
+        # same way as its bound; beside them the same launches issued back
+        # to back from Python (the host's issue time per launch) and the
+        # plain version per call.
+        reps = 2000
+        outs = [torch.tensor((3, 4, 7), device=dev), torch.tensor((3, 4, 2), device=dev)]
+        carry = new_carry(dev)
+        word = torch.full((1,), -1, dtype=torch.int32, device=dev)
+
+        def empty():
+            empty_launch(dev)
+            return carry
+
+        times = {"empty": self.graph_time(empty, reps),
+                 "empty issue": self.time_kernel(empty, reps=reps, warm=20)[0]}
+        for n in (1, 2):
+            merge = functools.partial(hot_merge, outs[:n], 5, carry, [word])
+            times[f"merge {n}"] = self.graph_time(merge, reps)
+            times[f"merge issue {n}"], _ = self.time_kernel(merge, reps=reps, warm=20)
+            times[f"plain {n}"], _ = self.time_kernel(
+                lambda: hot_merge_plain(outs[:n], 5, carry, [word]), reps=reps // 10, warm=5)
+        # Bytes the merge must move for one shard output and one word: the
+        # output, the carry and the word read; the carry, the probe and the
+        # word written.
+        moved = 3 * 8 + 5 * 8 + 4 + 5 * 8 + 2 * 8 + 4
+        self.h_stats.update(
+            ms=times["merge 1"], plain_ms=times["plain 1"],
+            bound_ms=moved / 3.35e12 * 1e3, empty_kernel_ms=times["empty"],
+            ms_two_shards=times["merge 2"], plain_ms_two_shards=times["plain 2"],
+            host_issue_ms=times["merge issue 1"],
+            host_issue_ms_two_shards=times["merge issue 2"],
+            empty_kernel_host_issue_ms=times["empty issue"],
+            shape=f"one shard output, one threshold word; ms and empty_kernel_ms: device "
+                  f"time per launch, {reps} launches in one CUDA Graph (CUDA events); "
+                  f"host_issue_ms: {reps} launches issued back to back from Python")
+        us = {k: v * 1e3 for k, v in times.items()}
+        log(f"hot_merge on the device {us['merge 1']:.3f} us per launch (two shard outputs "
+            f"{us['merge 2']:.3f} us), empty kernel {us['empty']:.3f} us (CUDA Graph of "
+            f"{reps}); issued from Python: merge {us['merge issue 1']:.2f} us "
+            f"({us['merge issue 2']:.2f} us), empty {us['empty issue']:.2f} us; plain version "
+            f"{us['plain 1']:.1f} us ({us['plain 2']:.1f} us); bytes bound "
+            f"{self.h_stats['bound_ms'] * 1e3:.5f} us [{self.card}]")
+
     def phase_numbers(self) -> None:
         from bitcoin_miner_tpu_torch.ops.sha256 import factor_low_pos
         from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
@@ -1597,6 +1868,7 @@ class Smoke:
             ("mesh path", self.phase_mesh_path),
             ("multihost", self.phase_multihost),
             ("serving path", self.phase_serving),
+            ("hot path", self.phase_hot_path),
             ("numbers", self.phase_numbers),
         ]
         for name, fn in phases:
@@ -1614,7 +1886,7 @@ class Smoke:
         if self.failures:
             log(f"FAILED phases: {self.failures}")
             return 1
-        s, f, b = self.k_stats, self.f_stats, self.b_stats
+        s, f, b, h = self.k_stats, self.f_stats, self.b_stats, self.h_stats
         common = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms")
         line = {"kernels": [{
             "name": "sha256_minhash",
@@ -1652,9 +1924,21 @@ class Smoke:
             **{key: b[key] for key in (
                 "shape", "per_message", "request_rates", "launches_serving",
                 "sm_clock_mhz", "sass", "ptxas")},
+        }, {
+            "name": "hot_merge",
+            "route": "cuda",
+            "source": H_SOURCE,
+            "replaces": H_REPLACES,
+            **{key: h[key] for key in common},
+            "bound_by": "bytes",
+            "library_ms": None,
+            **{key: h[key] for key in (
+                "shape", "empty_kernel_ms", "ms_two_shards", "plain_ms_two_shards",
+                "host_issue_ms", "host_issue_ms_two_shards", "empty_kernel_host_issue_ms",
+                "sass", "ptxas")},
         }], "launches_preimage_path": s["launches_preimage"], "native": self.native,
             "mesh_path": self.mesh, "multihost_ranks": self.multihost,
-            "serving_path": self.serving}
+            "serving_path": self.serving, "hot_path": self.hot}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch

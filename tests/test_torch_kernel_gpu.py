@@ -4,7 +4,9 @@ The SHA-256 kernels (main and factored) and the BLAKE2b-64 kernel, each
 held to its plain version on the same operands; the cuda rung's sweeps of
 each workload held to the workload's oracle, across 10^19 and up to the
 u64 edge too; and the sharded sweep (one and two shards on one card, and
-the mesh pipeline) held to the single-device sweep.
+the mesh pipeline) held to the single-device sweep.  The hot plane's merge
+kernel is held to its plain version step by step, and the hot sweeps of
+the three kernels' paths to the per-chunk ones and the oracle.
 
 Marked ``gpu``: without a CUDA card each test skips with a reason.  This
 file imports only the port (no JAX), so it also runs on a machine without
@@ -23,6 +25,7 @@ from bitcoin_miner_tpu_torch import workloads
 from bitcoin_miner_tpu_torch.bitcoin.hash import min_hash_range
 from bitcoin_miner_tpu_torch.ops import blake2b, sweep
 from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+from bitcoin_miner_tpu_torch.ops.hot import hot_merge, hot_merge_plain, new_carry
 from bitcoin_miner_tpu_torch.ops.sha256 import build_layout
 from bitcoin_miner_tpu_torch.ops.sha256_minhash import (
     I32_MAX,
@@ -327,3 +330,96 @@ def test_wrappers_launch_on_their_tensors_card(cuda_device):
     assert minhash_factored(**ops, k_in=3).tolist() == minhash_plain(**ops).tolist()
     b_ops, counters = _blake2b_operands("cmu440", 10, 6, 4, seed=3, device=other)
     assert blake2b_minhash(**b_ops, **counters).tolist() == _blake2b_plain(b_ops, counters)
+
+
+def _merge_steps(seed: int, n_steps: int, n: int):
+    """Per step, n shard outputs from few values (ties, sentinels, real
+    lanes at h0 == U32_MAX); the first a U32_MAX lane into the vacant carry."""
+    rng = np.random.default_rng(seed)
+    hs = [0, 1, 2, 7, U32_MAX - 1, U32_MAX]
+    sentinel = (U32_MAX, U32_MAX, I32_MAX)
+    steps = [[(U32_MAX, U32_MAX, 5)] + [sentinel] * (n - 1)]
+    for _ in range(n_steps - 1):
+        steps.append([sentinel if rng.random() < 0.25 else
+                      (int(rng.choice(hs)), int(rng.choice(hs)), int(rng.integers(0, 50)))
+                      for _ in range(n)])
+    return steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("sieve", [False, True])
+def test_hot_merge_matches_plain_on_card(cuda_device, n, sieve):
+    """Carry, probe and threshold word equal the plain version's after every
+    step, on the card, with the kernel's launch count one per step."""
+    carry, ref = new_carry(cuda_device), new_carry(cuda_device)
+    words = [torch.full((1,), -1, dtype=torch.int32, device=cuda_device) for _ in range(2)]
+    n0 = hot_merge.launches
+    for seq, outs in enumerate(_merge_steps(n + 10 * sieve, 150, n)):
+        outs = [torch.tensor(o, device=cuda_device) for o in outs]
+        got = hot_merge(outs, seq, carry, words[:1] if sieve else [])
+        want = hot_merge_plain(outs, seq, ref, words[1:] if sieve else [])
+        torch.cuda.synchronize()
+        assert got.tolist() == want.tolist(), seq
+        assert carry.tolist() == ref.tolist(), seq
+        assert words[0].tolist() == words[1].tolist(), seq
+    assert hot_merge.launches - n0 == 150
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,factored,kernel", KERNEL_PATHS)
+@pytest.mark.parametrize("sieve", [False, True])
+def test_hot_sweep_matches_per_chunk_and_oracle_on_card(cuda_device, name, factored, kernel,
+                                                        sieve):
+    """Small batches over digit boundaries, across 10^19 and at the u64
+    edge: the hot sweep launches the kernel and the merge once per dispatch
+    and equals the per-chunk sweep and the oracle."""
+    w = workloads.get(name)
+    for lo, hi, kw in ((985, 101_234, dict(max_k=3, batch=4)),
+                       (10**19 - 40, 10**19 + 25, {}), (2**64 - 60, 2**64 - 1, {})):
+        kw = dict(device=cuda_device, workload=w, sieve=sieve, factored=factored, **kw)
+        kernels = (minhash, minhash_factored, blake2b_minhash)
+        n0, m0, k0 = sum(k.launches for k in kernels), hot_merge.launches, kernel.launches
+        got = sweep.sweep_min_hash("hot", lo, hi, hot=True, **kw)
+        assert sum(k.launches for k in kernels) - n0 == hot_merge.launches - m0
+        assert kernel.launches > k0
+        per_chunk = sweep.sweep_min_hash("hot", lo, hi, **kw)
+        assert (got.hash, got.nonce, got.lanes_swept) == (
+            per_chunk.hash, per_chunk.nonce, per_chunk.lanes_swept)
+        assert (got.hash, got.nonce) == w.min_range("hot", lo, hi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sieve", [False, True])
+def test_hot_two_shards_on_one_card_match_one_device(cuda_device, sieve):
+    """Two shards on cuda:0 share one threshold word; the sharded sweep
+    and the mesh pipeline with hot=True equal one device's sweep."""
+    lo, hi = 999_000, 1_012_345
+    one = sweep.sweep_min_hash("mesh", lo, hi, device=cuda_device, max_k=3, batch=8,
+                               sieve=sieve)
+    got = sweep_min_hash_sharded("mesh", lo, hi, devices=[cuda_device] * 2, max_k=3,
+                                 batch_per_device=4, sieve=sieve, hot=True)
+    assert (got.hash, got.nonce, got.lanes_swept) == (one.hash, one.nonce, one.lanes_swept)
+    jobs = [("cmu440", 999_000, 1_012_345), ("x", 95, 100_020), ("cmu440", 10**8, 10**8 + 99)]
+    p = sweep.SweepPipeline(devices=[cuda_device] * 2, backend="cuda", max_k=3, batch=4,
+                            host_lane_budget=0, sieve=sieve, hot=True)
+    try:
+        for job, fut in [(job, p.submit(*job)) for job in jobs]:
+            r = fut.result(timeout=120)
+            assert (r.hash, r.nonce) == min_hash_range(*job), job
+    finally:
+        p.close()
+
+
+@pytest.mark.gpu
+def test_hot_sharded_across_two_cards(cuda_device):
+    """Shards on cuda:0 and cuda:1: outputs reach the merge on cuda:0, and
+    cuda:1's threshold word is copied from the merged one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    lo, hi = 999_000, 1_012_345
+    for sieve in (False, True):
+        got = sweep_min_hash_sharded("cards", lo, hi, devices=devs, max_k=3,
+                                     batch_per_device=4, sieve=sieve, hot=True)
+        assert (got.hash, got.nonce) == min_hash_range("cards", lo, hi)

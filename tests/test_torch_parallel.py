@@ -230,8 +230,15 @@ def test_mesh_pipeline_matches_single_device_pipeline(name):
 
 
 def test_hot_plane_is_refused_loudly():
-    with pytest.raises(ValueError, match="hot plane not ported"):
-        sweep_min_hash_sharded("x", 0, 10, devices=["cpu"], backend="torch", hot=True)
+    """One process runs the hot plane (tests/test_torch_hot.py holds it to
+    the reference); a multi-process world, the multihost miner's, refuses
+    it by name."""
+    got = sweep_min_hash_sharded("x", 0, 10, devices=["cpu"], backend="torch", hot=True)
+    assert (got.hash, got.nonce) == min_hash_range("x", 0, 10)
+    world = World(offset=0, n_shards=2, pmin=lambda v: v)
+    with pytest.raises(ValueError, match="multi-process world"):
+        sweep_min_hash_sharded("x", 0, 10, devices=["cpu"], backend="torch", hot=True,
+                               world=world)
 
 
 def test_resolve_devices():
