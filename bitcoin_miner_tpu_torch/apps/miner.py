@@ -31,7 +31,13 @@ miner exits.
 ``torch.distributed`` (gloo): host 0 talks LSP and broadcasts each Request,
 every host sweeps its devices' shards of it (``parallel/multihost.py``).
 
-Not ported yet: ``--telemetry``.
+``--telemetry HOSTPORT`` (env ``BMT_TELEMETRY``) ships this process's
+metric snapshots every ``--telemetry-interval`` seconds (default 2.0) to a
+server's ``--telemetry-port`` over a second LSP connection, as source
+``--source`` (default ``miner-<pid>``); see ``utils/telemetry.py``.  The
+miner feeds ``miner.nonces``, ``hist.miner_chunk_s`` and, through the sweep
+pipeline and LSP, ``hist.device_dispatch_s`` and ``hist.lsp_rtt_s``, and
+prints its lifetime nonce count on stderr when it exits.
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ from typing import Callable, Optional, Tuple
 
 from .. import lsp
 from ..bitcoin.message import Message, MsgType
+from ..utils import trace
+from ..utils.metrics import METRICS
 from ..utils.platform import NoDeviceError
 
 SearchFn = Callable[[str, int, int], Tuple[int, int]]  # -> (hash, nonce)
@@ -82,6 +90,26 @@ def _resolve_tier(backend: str, workload, device=None) -> str:
         f"workload {workload.name!r} has no {backend!r} tier "
         f"(ladder: {'->'.join(workload.tiers)})"
     )
+
+
+def _time_chunk(fut, lo: int, hi: int, t0: float) -> None:
+    """Attach miner-side chunk timing to a search future: submit→solve
+    wall time into ``hist.miner_chunk_s`` plus a trace event when armed —
+    the miner half of the per-request timeline (the scheduler only sees
+    the round trip including the wire).  ``t0`` is taken before the
+    submit call, so a ``--throttle-nps`` pace (which sleeps in submit)
+    counts as the slower miner it models; the reference stamps after the
+    call, which is the same for every search that does not pace."""
+
+    def _done(f) -> None:
+        if f.cancelled() or f.exception() is not None:
+            return
+        dt = time.monotonic() - t0
+        METRICS.observe("hist.miner_chunk_s", dt)
+        if trace.enabled():
+            trace.emit(None, "miner", "chunk_done", lo=lo, hi=hi, dt=round(dt, 6))
+
+    fut.add_done_callback(_done)
 
 
 def make_search(backend: str = "auto", device=None, workload=None,
@@ -220,7 +248,10 @@ def run_miner(
             if msg is None or msg.type != MsgType.REQUEST:
                 continue
             try:
-                inflight.put((asearch.submit(msg.data, msg.lower, msg.upper), msg))
+                t0 = time.monotonic()
+                fut = asearch.submit(msg.data, msg.lower, msg.upper)
+                _time_chunk(fut, msg.lower, msg.upper, t0)
+                inflight.put((fut, msg))
             except Exception as e:
                 # Dispatch-time backend failure: a SEARCH failure, not a
                 # conn loss.
@@ -239,6 +270,7 @@ def run_miner(
                     # an empty queue means every received chunk is answered.
                     item = inflight.get_nowait()
                 except _queue.Empty:
+                    trace.emit(None, "miner", "drained")
                     return True
             else:
                 try:
@@ -260,6 +292,7 @@ def run_miner(
                 # exit cleanly so the server reassigns.
                 print(f"miner: search failed: {e!r}", file=sys.stderr)
                 return False
+            METRICS.inc("miner.nonces", msg.upper - msg.lower + 1)
             try:
                 client.write(Message.result(h, n).marshal())
             except lsp.LspError:
@@ -280,6 +313,7 @@ def run_miner_resilient(
     max_retries: int = 5,
     backoff_base: float = 0.25,
     backoff_cap: float = 8.0,
+    label: Optional[str] = None,
     first_client: Optional["lsp.Client"] = None,
     stop: Optional[threading.Event] = None,
     drain: Optional[threading.Event] = None,
@@ -295,13 +329,15 @@ def run_miner_resilient(
     :func:`run_miner`: once set, the current connection answers the chunks
     it received and the lifetime ends (no reconnect).  One async
     ``search`` is reused across connections; plain callables are wrapped
-    once.
+    once.  ``label`` names each conn (``lsp.Client(label=)``) and rides
+    the ``reconnect`` / ``gave_up`` trace events.
     """
     from ..utils.retry import backoff_delay
 
     sleep = time.sleep if sleep is None else sleep
     asearch = _async(search)
     client = first_client
+    connected_before = client is not None
     failures = 0
 
     def pause(delay: float) -> bool:
@@ -315,10 +351,11 @@ def run_miner_resilient(
         while not (stop is not None and stop.is_set()):
             if client is None:
                 try:
-                    client = lsp.Client(host, port, params)
+                    client = lsp.Client(host, port, params, label=label)
                 except (lsp.LspError, OSError):
                     failures += 1
                     if failures > max_retries:
+                        trace.emit(None, "miner", "gave_up", label=label, attempts=failures)
                         print(
                             f"miner: giving up after {max_retries} reconnect "
                             "attempts", file=sys.stderr,
@@ -327,7 +364,11 @@ def run_miner_resilient(
                     if pause(backoff_delay(failures, backoff_base, backoff_cap)):
                         return
                     continue
+                if connected_before:
+                    METRICS.inc("miner.reconnects")
+                    trace.emit(None, "miner", "reconnect", label=label, attempts=failures)
                 failures = 0
+            connected_before = True
             conn_lost = False
             try:
                 conn_lost = run_miner(client, asearch, close_search=False, drain=drain)
@@ -433,7 +474,12 @@ class _TieredSearch:
         return self._active
 
     def _downgrade(self, why: str) -> None:
+        METRICS.inc("miner.tier_downgrades")
         self._downgrades += 1
+        # Trace the why: a trace shows which tier was abandoned and for
+        # what reason, not just a counter bump.
+        trace.emit(None, "miner", "tier_downgrade", tier=self._active_name, why=why,
+                   downgrades=self._downgrades)
         nxt = self._chain[self._idx + 1][0] if self._idx + 1 < len(self._chain) else None
         print(f"miner: tier {self._active_name!r} {why}; downgrading to {nxt!r} "
               f"(downgrade {self._downgrades})", file=sys.stderr, flush=True)
@@ -468,7 +514,9 @@ class _TieredSearch:
                     if self._closing:
                         out.set_exception(RuntimeError("search closed"))
                         break
-                    self._downgrade(f"wedged (> {budget:g} s/chunk)")
+                    trace.emit(None, "miner", "wedge_detected", tier=self._active_name,
+                               budget_s=budget, lo=lo, hi=hi)
+                    self._downgrade(f"wedged (> {budget:g}s/chunk)")
                 except Exception as e:
                     if self._closing:
                         out.set_exception(RuntimeError("search closed"))
@@ -570,6 +618,7 @@ def serve_multihost(client, sweep: SearchFn, broadcast) -> None:
         data, lower, upper = req
         h, n = sweep(data, lower, upper)
         if client is not None:
+            METRICS.inc("miner.nonces", upper - lower + 1)
             try:
                 client.write(Message.result(h, n).marshal())
             except lsp.LspError:
@@ -718,10 +767,27 @@ def main(argv=None) -> int:
     parser.add_argument("--coordinator", default=None)
     parser.add_argument("--num-hosts", type=int, default=None)
     parser.add_argument("--host-id", type=int, default=None)
+    # The telemetry sidecar: periodic metric snapshots to the server's
+    # --telemetry-port over a second LSP connection, off the sweep path.
+    parser.add_argument("--telemetry", metavar="HOSTPORT",
+                        default=os.environ.get("BMT_TELEMETRY") or None)
+    parser.add_argument("--telemetry-interval", type=float, default=2.0)
+    parser.add_argument("--source", default=None,
+                        help="telemetry source name (default miner-<pid>)")
     args = parser.parse_args(argv[1:])
     if args.multihost:
         return _main_multihost(args)
+    exporter = None
     try:
+        if args.telemetry:
+            from ..utils.telemetry import TelemetryExporter
+
+            thost, _, tport = args.telemetry.rpartition(":")
+            exporter = TelemetryExporter(
+                thost or "127.0.0.1", int(tport),
+                args.source or f"miner-{os.getpid()}",
+                interval=args.telemetry_interval,
+            )
         from ..workloads import resolve as resolve_workload
 
         workload = resolve_workload(args.workload)
@@ -740,9 +806,13 @@ def main(argv=None) -> int:
     if os.environ.get("BMT_MINER_LOG"):
         search = _LoggedSearch(search)
     host, _, port = args.hostport.rpartition(":")
+    if exporter is not None:
+        exporter.start()
     try:
         client = lsp.Client(host or "127.0.0.1", int(port))
     except (lsp.LspError, OSError, ValueError) as e:
+        if exporter is not None:
+            exporter.stop()
         search.close()
         print("Failed to join with server:", e)
         return 0
@@ -756,6 +826,7 @@ def main(argv=None) -> int:
         signal.signal(signal.SIGTERM, lambda _s, _f: drain.set())
     except ValueError:
         pass
+    t0 = time.monotonic()
     try:
         if args.reconnect > 0:
             run_miner_resilient(
@@ -766,10 +837,16 @@ def main(argv=None) -> int:
         else:
             run_miner(client, search, drain=drain)
     finally:
+        if exporter is not None:
+            exporter.stop()
         try:
             client.close()
         except lsp.LspError:
             pass
+        swept = METRICS.get("miner.nonces")
+        dt = max(time.monotonic() - t0, 1e-9)
+        print(f"miner: {swept} nonces swept ({swept / dt:,.0f}/s lifetime)",
+              file=sys.stderr)
     return 0
 
 def _main_multihost(args) -> int:

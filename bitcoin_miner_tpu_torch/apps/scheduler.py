@@ -10,10 +10,11 @@ chunk, drop jobs of dead clients.
 The port's copy of the reference package's ``apps/scheduler.py``: the same
 events give the same actions, byte for byte on the wire, and the same
 checkpoints (``tests/test_torch_scheduler.py``).  Results are validated
-with the port's own oracles (``bitcoin/hash.py``, ``workloads/``).  Nothing
-in the port feeds ``hist.device_dispatch_s`` yet (a miner runs in another
-process), so the adaptive depth keeps the static window unless a caller
-injects ``dispatch_latency=``.
+with the port's own oracles (``bitcoin/hash.py``, ``workloads/``).  The
+sweep pipeline feeds ``hist.device_dispatch_s`` in the process that sweeps;
+the adaptive depth reads this process's registry, so a server whose miners
+run in other processes keeps the static window, as in the reference,
+unless a caller injects ``dispatch_latency=``.
 
 Design notes (deliberately not a translation of anything):
 

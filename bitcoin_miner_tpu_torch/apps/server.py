@@ -24,17 +24,22 @@ checkpoint ticker) serialized under one event lock — whose returned
 actions are put on the wire.
 
 This is the port's copy of the reference package's ``apps/server.py``.
-What differs: the serving gateway, the fleet telemetry hub, the SLO
-engine, the autoscaler and the chaos layer are not ported yet, so
-``main`` refuses their flags (``--gateway``, ``--cache=``, ``--spans=``,
-``--rate=``, ``--burst=``, ``--max-queued=``, ``--prefill=``,
-``--telemetry-port=``, ``--fleet-log=``, ``--prom=``, ``--slo[=]``,
-``--autoscale[=]``) and their environment spellings (``BMT_PREFILL``,
-``BMT_TELEMETRY_PORT``, ``BMT_FLEET_LOG``, ``BMT_PROM``, ``BMT_SLO``,
-``BMT_AUTOSCALE``, ``BMT_CHAOS_SCENARIO``) with ``Invalid server
-configuration: <flag> is not ported yet`` before binding a port.  The
-engine still takes any scheduler-shaped policy object and a ``telemetry``
-hub (default None), as the reference's does.
+The fleet metrics plane is ported: ``--telemetry-port=P`` (miners'
+snapshot sidecars), ``--fleet-log=FILE`` (the merged view as JSONL;
+``python -m tools.dash FILE`` renders it), ``--prom=FILE`` (Prometheus
+text) and ``--slo[=CONF]`` (burn-rate alerts), env ``BMT_TELEMETRY_PORT``,
+``BMT_FLEET_LOG``, ``BMT_PROM``, ``BMT_SLO``; any of them arms a
+:class:`~bitcoin_miner_tpu_torch.utils.telemetry.TelemetryHub`, which the
+engine ticks.  A bad ``--slo=`` value or a busy telemetry port prints one
+line and returns 0 before the serving port binds (the reference binds the
+serving port first on the blocking shell).  What differs besides: the
+serving gateway, the autoscaler and the chaos layer are not ported yet,
+so ``main`` refuses their flags (``--gateway``, ``--cache=``,
+``--spans=``, ``--rate=``, ``--burst=``, ``--max-queued=``,
+``--prefill=``, ``--autoscale[=]``) and their environment spellings
+(``BMT_PREFILL``, ``BMT_AUTOSCALE``, ``BMT_CHAOS_SCENARIO``) with
+``Invalid server configuration: <flag> is not ported yet`` before binding
+a port.
 """
 
 from __future__ import annotations
@@ -766,19 +771,30 @@ class AsyncIngress:
         return self._server.conns_live()
 
 
-#: Server flags whose modules are not ported yet (gateway/, the telemetry
-#: hub and SLO engine, autoscale/): ``main`` refuses each before binding.
-_UNPORTED_EXACT = ("--gateway", "--slo", "--autoscale")
+#: Server flags whose modules are not ported yet (gateway/, autoscale/):
+#: ``main`` refuses each before binding.
+_UNPORTED_EXACT = ("--gateway", "--autoscale")
 _UNPORTED_VALUED = (
     "--cache=", "--spans=", "--rate=", "--burst=", "--max-queued=",
-    "--prefill=", "--telemetry-port=", "--fleet-log=", "--prom=", "--slo=",
-    "--autoscale=",
+    "--prefill=", "--autoscale=",
 )
 #: Their environment spellings, and the chaos layer's scenario switch.
-_UNPORTED_ENV = (
-    "BMT_PREFILL", "BMT_TELEMETRY_PORT", "BMT_FLEET_LOG", "BMT_PROM",
-    "BMT_SLO", "BMT_AUTOSCALE", "BMT_CHAOS_SCENARIO",
-)
+_UNPORTED_ENV = ("BMT_PREFILL", "BMT_AUTOSCALE", "BMT_CHAOS_SCENARIO")
+
+
+def _start_hub(tport: Optional[int], fleet_log, prom_path, slo_conf):
+    """The fleet metrics plane's hub for ``main``, started; None when no
+    flag arms it.  Raises ValueError for a bad ``--slo=`` value and
+    OSError for a busy telemetry port, before anything else binds."""
+    if tport is None and not (fleet_log or prom_path or slo_conf):
+        return None
+    from ..utils.slo import SloEngine, parse_slo_config
+    from ..utils.telemetry import TelemetryHub
+
+    engine = SloEngine(parse_slo_config(slo_conf)) if slo_conf else None
+    return TelemetryHub(
+        tport or 0, slo=engine, fleet_log=fleet_log, prom_path=prom_path,
+    ).start()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -794,6 +810,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     # to the file by the event plane's ticker; BMT_TRACE is the env
     # spelling for subprocess fleets.
     trace_path = os.environ.get("BMT_TRACE") or None
+    # Fleet metrics plane, env spellings for subprocess fleets:
+    # --telemetry-port=P listens for miner snapshot sidecars there;
+    # --fleet-log=FILE appends the merged view as JSONL (tools.dash reads
+    # it); --prom=FILE maintains a Prometheus text exposition;
+    # --slo[=CONF] arms burn-rate alerting (utils/slo.parse_slo_config).
+    telemetry_port = os.environ.get("BMT_TELEMETRY_PORT") or None
+    fleet_log = os.environ.get("BMT_FLEET_LOG") or None
+    prom_path = os.environ.get("BMT_PROM") or None
+    slo_conf = os.environ.get("BMT_SLO") or None
     # The range-fold workload this server schedules and validates.  The
     # wire protocol never names workloads, so server and miners must agree
     # on the flag; BMT_WORKLOAD is the env spelling.
@@ -809,8 +834,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     steal_factor = os.environ.get("BMT_STEAL_FACTOR") or None
     # --adaptive-depth (default ON): re-size the per-miner pipelined
     # assignment window each tick off the observed dispatch latency
-    # (hist.device_dispatch_s p50).  No port miner feeds that histogram in
-    # this process, so the window stays at the static depth.
+    # (hist.device_dispatch_s p50, this process's registry: miners in other
+    # processes feed their own, so a subprocess fleet keeps the static depth).
     # --no-adaptive-depth (or BMT_ADAPTIVE_DEPTH=0 — "" and "0" mean OFF,
     # the BMT_SANITIZE convention) restores the static window outright.
     _ad_env = os.environ.get("BMT_ADAPTIVE_DEPTH")
@@ -840,6 +865,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             trace_path = a.split("=", 1)[1]
         elif a.startswith("--workload="):
             workload_name = a.split("=", 1)[1]
+        elif a.startswith("--telemetry-port="):
+            telemetry_port = a.split("=", 1)[1]
+        elif a.startswith("--fleet-log="):
+            fleet_log = a.split("=", 1)[1]
+        elif a.startswith("--prom="):
+            prom_path = a.split("=", 1)[1]
+        elif a == "--slo":
+            slo_conf = "1"
+        elif a.startswith("--slo="):
+            slo_conf = a.split("=", 1)[1]
         elif a in _UNPORTED_EXACT or a.startswith(_UNPORTED_VALUED):
             unported.append(a.partition("=")[0])
         else:
@@ -849,6 +884,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     try:
         port = int(pos[0])
+        tport = int(telemetry_port) if telemetry_port is not None else None
     except ValueError as e:
         print("Port must be a number:", e)
         return 0
@@ -857,80 +893,95 @@ def main(argv: Optional[List[str]] = None) -> int:
         # or stop the server before it binds anything.
         print(f"Invalid server configuration: {unported[0]} is not ported yet")
         return 0
-    server = None
-    if not async_ingress:
-        try:
-            server = lsp.Server(port)
-        except OSError as e:
-            print(str(e))
-            return 0
-        print("Server listening on port", port)
-    if trace_path:
-        from ..utils.trace import TRACE
-
-        TRACE.enable(path=trace_path)
-    from ..workloads import resolve as resolve_workload
-    from ..workloads import resolve_nondefault
-
+    # Any fleet-plane knob arms the hub: the sidecar listener needs a
+    # port, but the SLO engine and the publish sinks are useful even on a
+    # single-process server (the local registry is its own source).
     try:
-        workload = resolve_workload(workload_name)
-    except ValueError as e:
+        hub = _start_hub(tport, fleet_log, prom_path, slo_conf)
+    except (ValueError, OSError) as e:
+        # Same friendly contract as a busy serving port — no traceback.
         print(str(e))
-        if server is not None:
-            server.close()
         return 0
-    resume = load_checkpoint(checkpoint_path) if checkpoint_path else None
-    # Scheduler(workload=None) is the default's path; only a non-default
-    # selection threads the registry object in (resolve_nondefault).
-    wl = resolve_nondefault(workload)
-    sched_kw: dict = {}
     try:
-        if chunk_target_s is not None:
-            sched_kw["target_chunk_seconds"] = float(chunk_target_s)
-        if steal_factor is not None:
-            sched_kw["steal_factor"] = float(steal_factor)
-        if static_chunks is not None:
-            n = int(static_chunks)
-            sched_kw.update(
-                min_chunk=n, max_chunk=n,
-                adaptive_chunks=False, steal_factor=0.0,
-            )
-        if adaptive_depth:
-            sched_kw["adaptive_depth"] = True
-    except ValueError as e:
-        print("Invalid scheduler configuration:", e)
-        if server is not None:
-            server.close()
-        return 0
-    sched = Scheduler(resume_state=resume, workload=wl, **sched_kw)
-    try:
-        if async_ingress:
+        server = None
+        if not async_ingress:
             try:
-                ingress = AsyncIngress(
-                    port, scheduler=sched, checkpoint_path=checkpoint_path,
-                ).start()
+                server = lsp.Server(port)
             except OSError as e:
                 print(str(e))
                 return 0
-            print("Server listening on port", ingress.port)
-            try:
-                # The engine runs on the ingress loop + ticker; this
-                # thread just waits for shutdown (Ctrl-C / SIGTERM).
-                while ingress._thread is not None and ingress._thread.is_alive():
-                    ingress._thread.join(timeout=1.0)
-            finally:
-                ingress.close()
-            if ingress.error is not None:
-                # A handler crash killed the ingress thread: re-raise so
-                # the process exits non-zero, exactly like the blocking
-                # shell where the same exception propagates out of serve().
-                raise ingress.error
-        else:
-            serve(server, scheduler=sched, checkpoint_path=checkpoint_path)
+            print("Server listening on port", port)
+        if trace_path:
+            from ..utils.trace import TRACE
+
+            TRACE.enable(path=trace_path)
+        from ..workloads import resolve as resolve_workload
+        from ..workloads import resolve_nondefault
+
+        try:
+            workload = resolve_workload(workload_name)
+        except ValueError as e:
+            print(str(e))
+            if server is not None:
+                server.close()
+            return 0
+        resume = load_checkpoint(checkpoint_path) if checkpoint_path else None
+        # Scheduler(workload=None) is the default's path; only a non-default
+        # selection threads the registry object in (resolve_nondefault).
+        wl = resolve_nondefault(workload)
+        sched_kw: dict = {}
+        try:
+            if chunk_target_s is not None:
+                sched_kw["target_chunk_seconds"] = float(chunk_target_s)
+            if steal_factor is not None:
+                sched_kw["steal_factor"] = float(steal_factor)
+            if static_chunks is not None:
+                n = int(static_chunks)
+                sched_kw.update(
+                    min_chunk=n, max_chunk=n,
+                    adaptive_chunks=False, steal_factor=0.0,
+                )
+            if adaptive_depth:
+                sched_kw["adaptive_depth"] = True
+        except ValueError as e:
+            print("Invalid scheduler configuration:", e)
+            if server is not None:
+                server.close()
+            return 0
+        sched = Scheduler(resume_state=resume, workload=wl, **sched_kw)
+        try:
+            if async_ingress:
+                try:
+                    ingress = AsyncIngress(
+                        port, scheduler=sched, checkpoint_path=checkpoint_path,
+                        telemetry=hub,
+                    ).start()
+                except OSError as e:
+                    print(str(e))
+                    return 0
+                print("Server listening on port", ingress.port)
+                try:
+                    # The engine runs on the ingress loop + ticker; this
+                    # thread just waits for shutdown (Ctrl-C / SIGTERM).
+                    while ingress._thread is not None and ingress._thread.is_alive():
+                        ingress._thread.join(timeout=1.0)
+                finally:
+                    ingress.close()
+                if ingress.error is not None:
+                    # A handler crash killed the ingress thread: re-raise so
+                    # the process exits non-zero, exactly like the blocking
+                    # shell where the same exception propagates out of serve().
+                    raise ingress.error
+            else:
+                serve(server, scheduler=sched, checkpoint_path=checkpoint_path,
+                      telemetry=hub)
+        finally:
+            if server is not None:
+                server.close()
+        return 0
     finally:
-        if server is not None:
-            server.close()
-    return 0
+        if hub is not None:
+            hub.close()
 
 
 if __name__ == "__main__":

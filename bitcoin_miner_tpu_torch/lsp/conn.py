@@ -26,9 +26,12 @@ The handshake (rule 1) and wire codec (rule 8) live in the owners
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Callable, Deque, Dict
 
+from ..utils import trace
+from ..utils.metrics import METRICS
 from .message import Message
 from .params import Params
 
@@ -59,6 +62,12 @@ class ConnCore:
         self._unacked: Dict[int, Message] = {}  # in flight
         self._acked: set = set()  # acked but above the contiguous prefix
         self._ack_base = 0  # highest contiguously-acked outbound seq
+        # RTT telemetry: first-send stamp per in-flight seq,
+        # Karn-filtered — a seq that was ever retransmitted yields no
+        # sample (its ack is ambiguous between transmissions).  Bounded by
+        # the window like _unacked; entries leave on ack.
+        self._sent_at: Dict[int, float] = {}
+        self._retx: set = set()  # seqs retransmitted at least once
 
         # -- receive side --
         self._expected = 1  # next in-order inbound seq to deliver
@@ -88,12 +97,18 @@ class ConnCore:
         while self._pending and self._pending[0].seq_num <= self._ack_base + w:
             msg = self._pending.popleft()
             self._unacked[msg.seq_num] = msg
+            self._sent_at[msg.seq_num] = time.monotonic()
             self._send(msg)
 
     def on_ack(self, seq: int) -> None:
         """Process an inbound Ack (client_impl.go:323-341)."""
         if seq == 0:
             return  # handshake/keepalive ack: liveness only
+        t0 = self._sent_at.pop(seq, None)
+        if t0 is not None and seq not in self._retx:
+            # Clean (never-retransmitted) sample only — Karn's rule.
+            METRICS.observe("hist.lsp_rtt_s", time.monotonic() - t0)
+        self._retx.discard(seq)
         self._unacked.pop(seq, None)
         if seq > self._ack_base:
             self._acked.add(seq)
@@ -110,8 +125,10 @@ class ConnCore:
         Size contract the reference never implemented, SURVEY §8.5)."""
         payload = msg.payload or b""
         if msg.size < 0:
+            METRICS.inc("lsp.dropped_bad_size")
             return  # nonsense Size (never produced by a real sender): drop
         if len(payload) < msg.size:
+            METRICS.inc("lsp.dropped_bad_size")
             return  # truncated in flight: drop silently, no ack
         if len(payload) > msg.size:
             payload = payload[: msg.size]
@@ -124,21 +141,26 @@ class ConnCore:
             # broken peer trying to balloon the reorder buffer — drop it
             # unacked (the ref shares this DoS hole, client_impl.go:277-289;
             # 2x is slack, not protocol headroom).
+            METRICS.inc("lsp.dropped_horizon")
             return
         self._send(Message.ack(self.conn_id, msg.seq_num))
         if seq < self._expected:
             return  # duplicate of already-delivered data
         self.received_any_data = True
-        if seq not in self._recent_recv:
+        if seq in self._recent_recv:
+            pass
+        else:
             self._recent_recv.append(seq)
             while len(self._recent_recv) > self.params.window_size:
                 self._recent_recv.popleft()
         if seq == self._expected:
             self._deliver(payload)
             self._expected += 1
+            METRICS.inc("lsp.delivered")
             while self._expected in self._reorder:
                 self._deliver(self._reorder.pop(self._expected))
                 self._expected += 1
+                METRICS.inc("lsp.delivered")
         else:
             self._reorder[seq] = payload
 
@@ -153,6 +175,14 @@ class ConnCore:
             return True
         # Retransmit all unacked in-window data (client_impl.go:360-368).
         for seq in sorted(self._unacked):
+            METRICS.inc("lsp.retransmits")
+            self._retx.add(seq)  # Karn: this seq's ack is now ambiguous
+            if trace.enabled():
+                trace.emit(
+                    None, "lsp", "retransmit",
+                    conn=self.conn_id, seq=seq,
+                    epochs_silent=self.epochs_silent,
+                )
             self._send(self._unacked[seq])
         # Re-ack: seq 0 keepalive if no data yet, else last W received
         # (client_impl.go:370-380).

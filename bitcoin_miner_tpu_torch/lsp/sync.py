@@ -17,7 +17,7 @@ from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Any, Callable, Coroutine, Optional, Tuple
 
-from ..utils import sanitize
+from ..utils import sanitize, trace
 from .aio import AsyncClient, AsyncServer
 from .errors import ConnClosedError
 from .params import Params
@@ -136,12 +136,17 @@ class Client:
 
     ``Client(host, port, params)`` performs the handshake and raises
     CannotEstablishConnectionError after EpochLimit silent epochs.
+
+    ``label`` names the endpoint, as in the reference; the port's LSP has
+    no chaos layer, so here it only names the conn's loop (its thread and
+    its sanitizer resource) and rides the ``lsp connect`` trace event.
     """
 
     def __init__(
-        self, host: str, port: int, params: Optional[Params] = None
+        self, host: str, port: int, params: Optional[Params] = None,
+        label: Optional[str] = None,
     ) -> None:
-        self._lt = _LoopThread(f"lsp-client-{host}:{port}")
+        self._lt = _LoopThread(f"lsp-client-{label or f'{host}:{port}'}")
         try:
             self._c: AsyncClient = self._lt.run(
                 AsyncClient.connect(host, port, params)
@@ -149,6 +154,13 @@ class Client:
         except BaseException:
             self._lt.stop()
             raise
+        # Conn-lifecycle trace events: the connect/close pairs bracket each
+        # reconnect epoch, so a reader can attribute retransmit bursts to a
+        # conn.
+        trace.emit(
+            None, "lsp", "connect",
+            conn=self._c.conn_id, label=label, host=host, port=port,
+        )
 
     def conn_id(self) -> int:
         return self._c.conn_id
@@ -165,6 +177,7 @@ class Client:
     def close(self) -> None:
         """Block until pending sends are acked (or the conn is lost).
         Idempotent: a second close is a no-op."""
+        trace.emit(None, "lsp", "close", conn=self._c.conn_id)
         try:
             self._lt.run(self._c.close())
         except ConnClosedError:
@@ -174,12 +187,14 @@ class Client:
 
 
 class Server:
-    """Blocking LSP server (API parity: lsp/server_api.go:6-39)."""
+    """Blocking LSP server (API parity: lsp/server_api.go:6-39).
+    ``label`` names its loop, as :class:`Client`'s does."""
 
     def __init__(
-        self, port: int, params: Optional[Params] = None, host: str = "127.0.0.1"
+        self, port: int, params: Optional[Params] = None, host: str = "127.0.0.1",
+        label: Optional[str] = None,
     ) -> None:
-        self._lt = _LoopThread(f"lsp-server-:{port}")
+        self._lt = _LoopThread(f"lsp-server-{label or f':{port}'}")
         try:
             self._s: AsyncServer = self._lt.run(
                 AsyncServer.create(port, params, host)

@@ -49,6 +49,7 @@ from typing import Deque, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace as _trace
 from ..utils.metrics import METRICS
 from ..utils.platform import resolve_device
 from .blake2b import blake2b_minhash_plain
@@ -499,6 +500,7 @@ class _HotLoop:
         #: device -> its (1,) int32 sieve threshold word (uint32 bits)
         self._words: dict = {}
         self._seq = 0
+        self._drained = 0
         #: seq -> (bases, 10^k): resolves the carried winner's flat lane to
         #: a nonce at the job's end; pruned by probe drains to O(in flight).
         self._bases: dict = {}
@@ -611,12 +613,19 @@ class _HotLoop:
         if token.event is not None:
             token.event.synchronize()  # blocks until the merge's probe lands
         _best_h0, best_seq = token.probe.tolist()
+        self._drained += 1
         # The final winner is this probe's best_seq or a later dispatch
         # (the carry moves only to strictly better, later candidates).
         for s in [s for s in self._bases if s <= token.seq and s != best_seq]:
             del self._bases[s]
         dt = _time.monotonic() - token.t_enq
         METRICS.observe("hist.device_dispatch_s", dt)
+        if _trace.enabled():
+            _trace.emit(
+                None, "kernel", "dispatch_done",
+                rows=len(bases), lanes=n_lanes, dt=round(dt, 6),
+                ring=self._seq - self._drained, donated=True,
+            )
         return dt
 
     def finish(self) -> Optional[Tuple[int, int]]:
@@ -825,6 +834,15 @@ class SweepPipeline:
                     # conservative-correct, so no lock).
                     b = state["best"]
                     th = (b[0][0] >> 32) if b else U32_MAX
+                    # The contrast number for the hot plane's zero-lag
+                    # carry: an operand-shipped threshold is as stale as
+                    # the whole in-flight window.
+                    METRICS.set_gauge(
+                        "kernel.thresh_staleness",
+                        float(self._fetches.qsize() + 1),
+                    )
+                # The enqueue stamp rides with the handle, so the fetcher
+                # can report each dispatch's enqueue→fetch time.
                 t_enq = _time.monotonic()
                 if self._devices is not None:
                     from ..parallel.sweep import sharded_invoke
@@ -922,13 +940,27 @@ class SweepPipeline:
                 if isinstance(out, _HotToken):
                     state["hot"].drain(out, bases, n_lanes)
                     continue
-                vals, ev, _t_enq = out
+                vals, ev, t_enq = out
                 if self._devices is not None:
                     cand = self._sharded_candidate(vals, bases, n_lanes)
                 else:
                     if ev is not None:
                         ev.synchronize()  # blocks until the dispatch lands
                     cand = _candidate(vals.tolist(), bases, n_lanes)
+                # Per-dispatch device time: enqueue→fetched.  The fetch
+                # above blocked until every shard's 3-word copy landed, so
+                # the delta is queue + kernel time, one sample per dispatch
+                # (not per shard).
+                dt = _time.monotonic() - t_enq
+                METRICS.observe("hist.device_dispatch_s", dt)
+                if _trace.enabled():
+                    # The per-chunk path has no descriptor ring and donates
+                    # no carry; the hot plane's drain says the opposite.
+                    _trace.emit(
+                        None, "kernel", "dispatch_done",
+                        rows=len(bases), lanes=n_lanes, dt=round(dt, 6),
+                        ring=0, donated=False,
+                    )
                 if cand is not None:
                     _fold(state["best"], cand)
             except BaseException as e:

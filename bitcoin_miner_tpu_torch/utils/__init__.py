@@ -1,5 +1,7 @@
 """Shared utilities: metrics counters, rate meters, tracing, the race
-sanitizer, interval algebra, WFQ, atomic persistence, the device probe.
+sanitizer, interval algebra, WFQ, atomic persistence, the device probe, and
+the fleet metrics plane (``telemetry``, ``fleetview``, ``slo``; imported
+from their modules, as in the reference package).
 
 ``utils.platform`` is deliberately NOT re-exported here: it imports torch,
 and the pure-protocol processes (the server, the client) that pull

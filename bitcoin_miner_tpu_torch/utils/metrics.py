@@ -287,11 +287,18 @@ def format_quantiles(h) -> str:
     return f"{s['p50']:.3g}/{s['p95']:.3g}/{s['p99']:.3g}"
 
 
-#: The process-wide registry: every name the port uses (a subset of the
-#: reference package's registry, same spellings).  Kinds by prefix:
-#: ``hist.*`` are histograms (observe), ``gauge.*`` AND ``fleet.*`` are
-#: gauges (set_gauge), everything else is a counter (inc).
+#: The process-wide registry: every name the port emits (a subset of the
+#: reference package's registry, same spellings), and no name the port
+#: does not emit (``tests/test_torch_telemetry.py`` scans the source for
+#: drift in either direction).  Kinds by prefix: ``hist.*`` are histograms
+#: (observe), ``gauge.*`` AND ``fleet.*`` are gauges (set_gauge — the
+#: merged fleet-view levels published by utils/telemetry.py), everything
+#: else is a counter (inc).
 #:
+#:   lsp.retransmits       data messages resent on epoch ticks
+#:   lsp.delivered         in-order payloads handed to the application
+#:   lsp.dropped_bad_size  datagrams rejected by Size validation
+#:   lsp.dropped_horizon   datagrams beyond the reorder horizon (DoS guard)
 #:   sched.chunks_assigned     chunks handed to miners
 #:   sched.chunks_reassigned   chunks returned by dead miners
 #:   sched.chunks_straggler_requeued  chunks reclaimed from hung miners
@@ -306,25 +313,38 @@ def format_quantiles(h) -> str:
 #:   sched.prefill_chunks      chunks dispatched for speculative prefill jobs
 #:   sched.depth_adapt         adaptive pipeline-depth window re-sizes
 #:   fed.handoff_jobs          resumable identities imported from a draining peer
+#:   fed.conns_live            live peer conns at the federation transport (gauge)
 #:   ingress.events            payloads dispatched on the asyncio ingress loop
 #:   ingress.conns_lost        conns the async ingress reaped after epoch loss
 #:   ingress.cross_thread_writes  off-loop writes hopped onto the ingress loop
 #:   gw.conns_live             live conns at the public serving transport (gauge)
 #:   client.resubmits          jobs resubmitted after a lost client conn
-#:   sanitize.loop_blocked     blocking-on-loop trips raised by the sanitizer
-#:   sanitize.threads_leaked   threads found beyond a census baseline at reap time
-#:   hist.request_s            request→result latency at the gateway (s; no gateway
-#:                             in the port yet, so the health line prints -/-/-)
-#:   hist.chunk_rtt_s          chunk dispatch→Result round-trip (s)
-#:   hist.device_dispatch_s    per-dispatch device enqueue→probe time (s; read by the
-#:                             adaptive depth, fed by the hot plane's drain)
+#:   miner.nonces              nonces swept by this process's miner loop
+#:   miner.reconnects          successful re-Joins after a lost server conn
+#:   miner.tier_downgrades     kernel tiers abandoned by the sweep watchdog
 #:   sweep.ring_refills        chunk descriptors the hot plane uploads (one per dispatch)
 #:   sweep.donated_dispatches  dispatches merged into a hot plane's device carry
 #:   kernel.thresh_staleness   sieve-threshold lag in dispatches (gauge; 1 = device-resident)
+#:   telemetry.exports         metric snapshots shipped over the sidecar channel
+#:   telemetry.export_errors   snapshot sends/connects that failed (channel down)
+#:   telemetry.snapshots_merged  snapshots folded into the server's fleet view
+#:   telemetry.decode_errors   telemetry payloads that failed to decode
+#:   slo.alerts_fired          SLO burn-rate alerts that transitioned to firing
+#:   slo.alerts_resolved       firing SLO alerts that cleared
+#:   sanitize.loop_blocked     blocking-on-loop trips raised by the sanitizer
+#:   sanitize.threads_leaked   threads found beyond a census baseline at reap time
+#:   hist.chunk_rtt_s          chunk dispatch→Result round-trip (s)
+#:   hist.device_dispatch_s    per-dispatch device enqueue→fetch time (s)
+#:   hist.miner_chunk_s        miner-side chunk submit→solve time (s)
+#:   hist.lsp_rtt_s            LSP data→ack round-trip, Karn-filtered (s)
 #:   gauge.miners_live         miners currently joined to the scheduler
 #:   gauge.inflight_chunks     chunks outstanding at miners right now
 #:   gauge.admission_backlog   requests parked in the admission queue
 #:   gauge.sched_vt_floor      scheduler tenant WFQ leading virtual time
+#:   gauge.gw_vt_floor         gateway admission WFQ leading virtual time
+#:   fleet.sources             fresh telemetry sources in the fleet view
+#:   fleet.sources_stale       sources aged past the staleness window
+#:   fleet.stragglers          sources flagged by the straggler detector
 #:   fleet.utilization         fraction of live miners currently holding work
 METRICS = Metrics()
 

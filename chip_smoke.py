@@ -75,7 +75,22 @@ Phases (any failure ends the run non-zero, with no result line):
    ``sweep_min_hash`` over the same range (the short one to
    ``min_hash_range``); each job's time to Result, nonces/s and Requests
    sent (from the server's trace), each miner's launch counts;
-13. hot path — the hot plane's merge kernel against its plain version,
+13. telemetry path — the fleet metrics plane on the card: ``apps.server``
+   with ``--telemetry-port``, ``--fleet-log``, ``--prom``, ``--slo=`` and
+   ``--trace``, three ``apps.miner`` processes at their defaults with
+   ``--telemetry`` (interval 0.5 s; ``miner-c`` throttled to be the
+   straggler) and two concurrent ``apps.client`` jobs, each Result held to
+   hashlib and ``sweep_min_hash``; from the last fleet-log state: the four
+   sources fresh, the merged ``miner.nonces`` equal to the nonces the
+   server's trace dispatched, each miner's ``hist.device_dispatch_s`` count
+   equal to its kernel launches and its ``hist.miner_chunk_s`` count to its
+   answered Requests, ``hist.lsp_rtt_s`` sampled, ``miner-c`` the one
+   straggler (one ``fleet straggler`` event), the SLO alert fired, the
+   Prometheus file parsed, ``fleet=``/``slo=`` on the health lines, each
+   miner's lifetime line; a clean run (two miners, bare ``--slo``) with no
+   alert; each miner's per-dispatch p50/p95; an A B B A pair of 1e9
+   Requests on one miner, exporter armed against bare;
+14. hot path — the hot plane's merge kernel against its plain version,
    bit-exact, over seeded sequences and random carries with one and two
    shard outputs (ties, sentinels, a vacant carry against h0 == U32_MAX);
    ``sweep_min_hash(hot=True)`` against the per-chunk sweep on 1e9-nonce
@@ -89,7 +104,7 @@ Phases (any failure ends the run non-zero, with no result line):
    (per-chunk, hot) in nonces/s; the merge's device time per launch (a
    CUDA Graph of launches) beside an empty kernel's timed the same way,
    the host's issue time per launch and its plain version's;
-14. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+15. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
@@ -179,6 +194,46 @@ SERVE_DRILL = ("drill", 19_999_999_999)
 SERVE_ASYNC_JOB = ("cmu440", 9_999_999_999)
 SERVE_B2_JOB = ("cmu440", 1_999_999_999)
 SERVE_MINER_ARGS: list = []
+# One miner of the telemetry phase: the port miner's main with this
+# process's argv and its tracer armed (its serving conn id rides the "lsp
+# connect" event), then a report: return code, launch counts, the conn ids
+# it joined with, its dispatch_done events and its registry's final state.
+TELE_MINER_CODE = """
+import json, sys
+from bitcoin_miner_tpu_torch.apps import miner
+from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
+from bitcoin_miner_tpu_torch.utils.metrics import METRICS
+from bitcoin_miner_tpu_torch.utils.trace import TRACE
+TRACE.enable(capacity=10**6)
+rc = miner.main(["miner", *sys.argv[1:]])
+rows = TRACE.drain()
+print(json.dumps({
+    "main_rc": rc,
+    "launches": {k.__name__: k.launches for k in (minhash, minhash_factored, blake2b_minhash)},
+    "conns": [r["attrs"]["conn"] for r in rows
+              if (r["span"], r["event"]) == ("lsp", "connect") and r["attrs"]["label"] is None],
+    "dispatch_done": sum(1 for r in rows if (r["span"], r["event"]) == ("kernel", "dispatch_done")),
+    "state": METRICS.export_state()}), flush=True)
+sys.exit(rc)
+"""
+# The telemetry phase: the miners' export interval (s), the server's SLO
+# spec for the throttled run (chunk RTT over 1 s is bad; 99% good; 5 s /
+# 10 s windows; burn 2), miner-c's pace (nonces/s: every chunk it gets is
+# the scheduler's 50,000-nonce minimum, so 1.67 s each, several times a
+# healthy miner's chunk time; the hub flags a straggler from 8 samples, so
+# the run keeps it busy over 20 s), the throttled run's jobs, the clean
+# run's and the phase's time limit.
+TELE_INTERVAL = 0.5
+TELE_SLO = "chunk_p95=1,objective=0.99,window=5/10,burn=2,min_events=4"
+TELE_THROTTLE_NPS = 30_000
+TELE_JOBS = [("cmu440", 249_999_999_999), (FIB1_DATA, 9_999_999_999)]
+TELE_CLEAN_JOBS = [("cmu440", 9_999_999_999), (FIB1_DATA, 4_999_999_999)]
+TELE_PHASE_S = 240
+TELE_PAIR_REQUESTS = 9  # per leg of the overhead pair; the first is not timed
+TELE_PAIR_SIZE = 10**9  # nonces per Request of the pair
+LIFETIME = re.compile(r"miner: (\d+) nonces swept \([\d,]+/s lifetime\)")
 
 
 def log(*a) -> None:
@@ -359,6 +414,126 @@ class ServeFleet:
         return rows
 
 
+class TeleFleet(ServeFleet):
+    """A serving fleet with the fleet metrics plane armed: the server gets
+    a telemetry port, a fleet log and a Prometheus file in its directory;
+    each miner (``TELE_MINER_CODE``) its own arguments, its stdout (the
+    report) and its stderr (the lifetime line) in files apart."""
+
+    def __init__(self, workdir: str, name: str, deadline: float, server_args=()) -> None:
+        import socket
+
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.tport = sock.getsockname()[1]
+        super().__init__(workdir, name, deadline, [
+            f"--telemetry-port={self.tport}", "--fleet-log=fleet.jsonl",
+            "--prom=metrics.prom", *server_args])
+        self.names = []
+
+    def start_tele_miners(self, per_miner: dict, wait: bool = True) -> None:
+        """One miner per ``{source: extra args}``, all at once; with
+        ``wait``, until every one joined."""
+        for source, extra in per_miner.items():
+            i = len(self.miners)
+            out = open(os.path.join(self.dir, f"miner{i}.out"), "w")
+            err = open(os.path.join(self.dir, f"miner{i}.err"), "w")
+            try:
+                p = subprocess.Popen(
+                    [sys.executable, "-c", TELE_MINER_CODE, f"127.0.0.1:{self.port}",
+                     "--telemetry", f"127.0.0.1:{self.tport}", "--telemetry-interval",
+                     str(TELE_INTERVAL), "--source", source, *extra],
+                    cwd=self.dir, env=self.env, stdout=out, stderr=err)
+            finally:
+                out.close()
+                err.close()
+            self.miners.append((p, None))
+            self.names.append(source)
+        if wait:
+            self.wait_for(r"miner (\d+) joined", len(self.miners), SERVE_JOIN_S)
+
+    def states(self):
+        """Every fleet-log state so far (a line torn by a write is skipped)."""
+        out = []
+        for line in self.read("fleet.jsonl").splitlines():
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+        return out
+
+    def settle(self) -> dict:
+        """Wait until the server holds no chunk at any miner (every Request
+        answered), then two export intervals, a publish interval and a
+        tick more, so each miner's last snapshot is in the fleet log; the
+        last fleet-log state."""
+        deadline = min(time.monotonic() + 30, self.deadline)
+        while True:
+            st = self.states()
+            if st and st[-1]["gauges"].get("gauge.inflight_chunks") == 0:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.name}: chunks still held at miners: "
+                                     f"{st[-1]['gauges'] if st else None}")
+            time.sleep(0.1)
+        time.sleep(2 * TELE_INTERVAL + 2.0 + 1.0)
+        return self.states()[-1]
+
+    def reports(self):
+        """Each stopped miner's report, in start order."""
+        out = []
+        for i in range(len(self.miners)):
+            last = [ln for ln in self.read(f"miner{i}.out").splitlines() if ln.startswith("{")]
+            if not last:
+                raise AssertionError(f"{self.name}: miner {i} printed no report")
+            out.append(json.loads(last[-1]))
+        return out
+
+
+def parse_prom(text: str) -> dict:
+    """Check ``text`` as Prometheus text exposition (version 0.0.4): every
+    sample's family declared by one ``# TYPE`` line before it, names and
+    labels well formed, values numbers.  Returns the unlabelled samples."""
+    sample = re.compile(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+                        r'(?:,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? (\S+)')
+    types, values = {}, {}
+    for n, line in enumerate(text.splitlines(), 1):
+        if line.startswith("# TYPE "):
+            _h, _t, name, kind = line.split(" ")
+            if name in types or kind not in ("counter", "gauge", "histogram", "summary",
+                                             "untyped"):
+                raise AssertionError(f"prom line {n}: bad TYPE {line!r}")
+            types[name] = kind
+            continue
+        if line.startswith("#"):
+            continue
+        m = sample.fullmatch(line)
+        if not m:
+            raise AssertionError(f"prom line {n}: not a sample: {line!r}")
+        name, labels, value = m.groups()
+        float(value)  # raises on a non-number
+        family = name
+        if name not in types:
+            family = re.sub(r"_(bucket|sum|count)$", "", name)
+            if types.get(family) != "histogram":
+                raise AssertionError(f"prom line {n}: {name} has no TYPE before it")
+        if labels is None:
+            values[name] = float(value)
+    if not values:
+        raise AssertionError("prom text has no samples")
+    return values
+
+
+def hist_summary(state) -> dict:
+    """A histogram state's count, exact mean and p50/p95 (log-bucket upper
+    edges, so within one 19% bucket above the true sample quantile)."""
+    from bitcoin_miner_tpu_torch.utils.metrics import Histogram
+
+    h = Histogram.from_state(state or {})
+    return {"count": h.count(), "mean_s": h.mean(), "p50_s": h.quantile(0.5),
+            "p95_s": h.quantile(0.95)}
+
+
 def smi(query: str) -> str:
     from bitcoin_miner_tpu_torch.utils.platform import nvidia_smi
 
@@ -453,6 +628,7 @@ class Smoke:
         self.serving = {}  # the serving path's jobs, times and launches
         self.h_stats = {}  # the hot merge kernel's
         self.hot = {}  # the hot path's launches, rates and checks
+        self.tele = {}  # the telemetry path's checks, dispatch times and pair
 
     # ------------------------------------------------------------ helpers
 
@@ -1421,6 +1597,278 @@ class Smoke:
             shutil.copytree(work, keep, dirs_exist_ok=True)
             shutil.rmtree(work, ignore_errors=True)
 
+    def phase_telemetry(self) -> None:
+        """The fleet metrics plane on the card.  (1) The throttled run: the
+        server (blocking shell) with its hub armed and ``--slo=TELE_SLO``,
+        miners ``miner-a``, ``miner-b`` at their defaults and ``miner-c``
+        paced to TELE_THROTTLE_NPS, all exporting every TELE_INTERVAL s, and
+        the TELE_JOBS clients at once; checks (a)–(i) on the last fleet-log
+        state once every Request is answered.  (2) The clean run: two
+        unthrottled miners, bare ``--slo``: no alert fires.  (3) Each
+        miner's ``hist.device_dispatch_s`` p50/p95 (printed beside the
+        kernel's per-dispatch time after "numbers").  (4) An A B B A pair of
+        nonces/s per 1e9 Request on one miner in this process, exporter
+        armed (to an in-process hub) against bare; nothing is claimed."""
+        import shutil
+        import tempfile
+
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+
+        deadline = time.monotonic() + TELE_PHASE_S
+        work = tempfile.mkdtemp(prefix="telemetry-")
+        keep = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build", "telemetry")
+        fleets, tele = [], self.tele
+
+        def dispatched(fleet):
+            """conn id -> (Requests the server sent it, their nonces), from
+            its trace; and the trace's rows."""
+            rows = fleet.trace_events()
+            per = {}
+            for r in rows:
+                if r["event"] == "dispatch" and r["span"] == "sched":
+                    a = r["attrs"]
+                    n, nonces = per.get(a["miner"], (0, 0))
+                    per[a["miner"]] = (n + 1, nonces + a["hi"] - a["lo"] + 1)
+            return per, rows
+
+        def held(fleet, jobs, got):
+            for (data, hi), (h, n, _wall) in zip(jobs, got):
+                if h != hash_nonce(data, n) or not 0 <= n <= hi:
+                    raise AssertionError(f"{fleet.name}: bad Result ({h}, {n}) for {data!r}")
+                r = sweep_min_hash(data, 0, hi, device=self.dev)
+                if (h, n) != (r.hash, r.nonce):
+                    raise AssertionError(f"{fleet.name}: {data!r} [0, {hi}]: served ({h}, {n}) "
+                                         f"!= sweep_min_hash on the card {(r.hash, r.nonce)}")
+                log(f"  {fleet.name}: {data[:12]!r} [0, {hi}] -> ({h}, {n}): equals hashlib "
+                    f"and sweep_min_hash on the card")
+
+        def common(fleet, state, names):
+            """(a), (b), (c), (d), (e), (i) on one settled fleet; returns the
+            per-miner rows."""
+            srcs = state["per_source"]
+            if sorted(srcs) != sorted([*names, "server"]) or any(
+                    v["stale"] for v in srcs.values()):
+                raise AssertionError(f"{fleet.name}: (a) sources {srcs}")
+            log(f"  (a) sources fresh: {sorted(srcs)}")
+            per, rows = dispatched(fleet)
+            fleet.stop()
+            reports = fleet.reports()
+            out = {}
+            for i, (name, rep) in enumerate(zip(names, reports)):
+                if rep["main_rc"] != 0 or len(rep["conns"]) != 1:
+                    raise AssertionError(f"{fleet.name}: {name} report {rep['main_rc']}, "
+                                         f"conns {rep['conns']}")
+                sent, nonces = per.get(rep["conns"][0], (0, 0))
+                st = rep["state"]
+                disp = hist_summary(st["hists"].get("hist.device_dispatch_s"))
+                chunk = hist_summary(st["hists"].get("hist.miner_chunk_s"))
+                launches = rep["launches"]["minhash"]
+                swept = st["counters"].get("miner.nonces", 0)
+                err = fleet.read(f"miner{i}.err")
+                lines = [ln for ln in err.splitlines() if ln.strip()]
+                m = LIFETIME.fullmatch(lines[-1]) if lines else None
+                row = dict(conn=rep["conns"][0], requests=sent, nonces_dispatched=nonces,
+                           miner_nonces=swept, launches=launches,
+                           dispatch_done_events=rep["dispatch_done"], dispatch=disp,
+                           chunk=chunk, lifetime=lines[-1] if lines else None)
+                out[name] = row
+                log(f"  {name} (conn {row['conn']}): (b) miner.nonces {swept} == dispatched "
+                    f"{nonces}; (c) hist.device_dispatch_s count {disp['count']} == launches "
+                    f"{launches} ({rep['dispatch_done']} dispatch_done events); (d) "
+                    f"hist.miner_chunk_s count {chunk['count']} == answered Requests {sent}; "
+                    f"dispatch p50 {disp['p50_s']:.4f} s p95 {disp['p95_s']:.4f} s, chunk p50 "
+                    f"{chunk['p50_s']:.4f} s [{self.card}]")
+                if swept != nonces or disp["count"] != launches or launches <= 0 \
+                        or rep["dispatch_done"] != launches or chunk["count"] != sent:
+                    raise AssertionError(f"{fleet.name}: {name} (b)/(c)/(d) failed: {row}")
+                if m is None or int(m.group(1)) != swept:
+                    raise AssertionError(f"{fleet.name}: (i) {name}'s stderr ends {lines[-3:]}")
+            total = sum(n for _s, n in per.values())
+            merged = state["counters"].get("miner.nonces")
+            m_disp = state["hists"].get("hist.device_dispatch_s", {}).get("count")
+            m_chunk = state["hists"].get("hist.miner_chunk_s", {}).get("count")
+            log(f"  merged: miner.nonces {merged} == dispatched {total}; "
+                f"hist.device_dispatch_s {m_disp} == launches "
+                f"{sum(r['launches'] for r in out.values())}; hist.miner_chunk_s {m_chunk} == "
+                f"Requests {sum(s for s, _n in per.values())}; (i) lifetime lines "
+                f"{[r['lifetime'] for r in out.values()]}")
+            if merged != total or m_disp != sum(r["launches"] for r in out.values()) \
+                    or m_chunk != sum(s for s, _n in per.values()):
+                raise AssertionError(f"{fleet.name}: (b)-(d) on the merged view failed")
+            rtt = state["hists"].get("hist.lsp_rtt_s", {}).get("count", 0)
+            log(f"  (e) hist.lsp_rtt_s: {rtt} samples")
+            if rtt <= 0:
+                raise AssertionError(f"{fleet.name}: (e) hist.lsp_rtt_s is empty")
+            return out, rows
+
+        try:
+            # (1) the throttled run.
+            a = TeleFleet(work, "throttled", deadline, [f"--slo={TELE_SLO}"])
+            fleets.append(a)
+            names = ["miner-a", "miner-b", "miner-c"]
+            a.start_tele_miners({"miner-a": [], "miner-b": [],
+                                 "miner-c": ["--throttle-nps", str(TELE_THROTTLE_NPS)]})
+            # The clean run's fleet starts now, so its start-up overlaps.
+            b = TeleFleet(work, "clean", deadline, ["--slo"])
+            fleets.append(b)
+            got, _ = a.jobs(TELE_JOBS)
+            t_run = max(w for _h, _n, w in got)
+            state = a.settle()
+            miners, rows = common(a, state, names)
+            strag = [s["source"] for s in state["stragglers"]]
+            events = [r["attrs"] for r in rows if (r["span"], r["event"]) == ("fleet", "straggler")]
+            log(f"  (f) stragglers {state['stragglers']}; fleet straggler events {events}")
+            if "miner-c" not in strag or [e["source"] for e in events].count("miner-c") != 1:
+                raise AssertionError("(f) miner-c is not the one flagged straggler")
+            fired = [r["attrs"] for r in rows if (r["span"], r["event"]) == ("slo", "alert_fired")]
+            n_fired = state["counters"].get("slo.alerts_fired", 0)
+            log(f"  (g) --slo={TELE_SLO}: alerts fired {fired} (slo.alerts_fired {n_fired}); "
+                f"last SLO state {state.get('slo', {}).get('alerts')}")
+            if not any(e["slo"] == "chunk-rtt-p95" for e in fired) or n_fired < 1:
+                raise AssertionError("(g) the throttled run fired no chunk-rtt-p95 alert")
+            prom = parse_prom(a.read("metrics.prom"))
+            health = re.findall(r"health .*", a.read("log.txt"))
+            log(f"  (h) Prometheus file: {len(prom)} unlabelled samples, bmt_miner_nonces "
+                f"{prom.get('bmt_miner_nonces')}; health lines with fleet=/slo=: "
+                f"{sum(1 for h in health if ' fleet=' in h and ' slo=' in h)} of {len(health)}; "
+                f"last: {health[-1] if health else None}")
+            if "bmt_miner_nonces" not in prom or not health or not all(
+                    " fleet=" in h and " slo=" in h for h in health[-1:]):
+                raise AssertionError("(h) the Prometheus file or the health lines lack the plane")
+            tele["throttled"] = dict(jobs=TELE_JOBS, slowest_client_s=t_run, miners=miners,
+                                     stragglers=state["stragglers"], alerts_fired=fired,
+                                     slo=TELE_SLO, throttle_nps=TELE_THROTTLE_NPS,
+                                     card=self.card)
+            # (2) the clean run: its miners start up while the throttled
+            # run's Results are held on the card.
+            b.start_tele_miners({"miner-a": [], "miner-b": []}, wait=False)
+            held(a, TELE_JOBS, got)
+            b.wait_for(r"miner (\d+) joined", len(b.miners), SERVE_JOIN_S)
+            got_b, _ = b.jobs(TELE_CLEAN_JOBS)
+            state_b = b.settle()
+            miners_b, rows_b = common(b, state_b, ["miner-a", "miner-b"])
+            fired_b = [r["attrs"] for r in rows_b if (r["span"], r["event"]) == ("slo",
+                                                                                 "alert_fired")]
+            log(f"  (g) clean run, bare --slo: alerts fired {fired_b}, slo.alerts_fired "
+                f"{state_b['counters'].get('slo.alerts_fired', 0)}")
+            if fired_b or state_b["counters"].get("slo.alerts_fired", 0) or state_b.get(
+                    "slo", {}).get("alerts") != []:
+                raise AssertionError("(g) the clean run fired an SLO alert")
+            held(b, TELE_CLEAN_JOBS, got_b)
+            tele["clean"] = dict(jobs=TELE_CLEAN_JOBS, miners=miners_b, card=self.card)
+            for f in fleets:
+                f.stopped.join(timeout=60)
+            tele["pair"] = self.telemetry_pair()
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the telemetry phase ran past {TELE_PHASE_S} s")
+        finally:
+            for f in fleets:
+                f.kill_all()
+            shutil.rmtree(keep, ignore_errors=True)
+            shutil.copytree(work, keep, dirs_exist_ok=True)
+            shutil.rmtree(work, ignore_errors=True)
+
+    def pair_leg(self, armed: bool, hub_port: int):
+        """One leg of the overhead pair: a port miner's serve loop
+        (``run_miner`` over ``make_async_search("cuda")``, as ``main``
+        builds it) in a thread, with a ``TelemetryExporter`` to
+        ``hub_port`` when ``armed``, served TELE_PAIR_REQUESTS Requests of
+        TELE_PAIR_SIZE nonces of ``"cmu440"`` one at a time by this
+        script's LSP server; the miner ends by its drain.  Returns the nonces/s
+        of every Request but the first (which folds d <= 9 on the host
+        and in small dispatches), the fold of all of them and the
+        ``hist.device_dispatch_s`` summary of the timed Requests'
+        dispatches (this process's registry, its part after the first
+        Result; a dispatch is observed before its Request's Result is
+        written)."""
+        from bitcoin_miner_tpu_torch import lsp
+        from bitcoin_miner_tpu_torch.apps import miner
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.bitcoin.message import Message, MsgType
+        from bitcoin_miner_tpu_torch.utils.metrics import METRICS
+        from bitcoin_miner_tpu_torch.utils.telemetry import TelemetryExporter
+
+        def dispatch_state():
+            h = METRICS.histogram("hist.device_dispatch_s")
+            if h is None:
+                raise AssertionError("the pair's miner observed no dispatch")
+            return h.state()
+
+        server = lsp.Server(0)
+        search = miner.make_async_search("cuda")
+        exp = (TelemetryExporter("127.0.0.1", hub_port, "pair",
+                                 interval=TELE_INTERVAL).start() if armed else None)
+        client = lsp.Client("127.0.0.1", server.port)
+        drain = threading.Event()
+        t = threading.Thread(target=miner.run_miner, args=(client, search),
+                             kwargs=dict(drain=drain), name="pair-miner", daemon=True)
+        t.start()
+        rates, best, before = [], None, None
+        try:
+            conn, _join = server.read()
+            for i in range(TELE_PAIR_REQUESTS):
+                lo, hi = i * TELE_PAIR_SIZE, (i + 1) * TELE_PAIR_SIZE - 1
+                t0 = time.monotonic()
+                server.write(conn, Message.request("cmu440", lo, hi).marshal())
+                while True:
+                    cid, payload = server.read()
+                    r = Message.unmarshal(payload)
+                    if cid == conn and r is not None and r.type == MsgType.RESULT:
+                        break
+                dt = time.monotonic() - t0
+                if not lo <= r.nonce <= hi or r.hash != hash_nonce("cmu440", r.nonce):
+                    raise AssertionError(f"the pair: bad Result {r} for [{lo}, {hi}]")
+                if i:
+                    rates.append((hi - lo + 1) / dt)
+                else:
+                    before = dispatch_state()
+                best = min(best or (r.hash, r.nonce), (r.hash, r.nonce))
+            after = dispatch_state()
+        finally:
+            drain.set()
+            t.join(timeout=30)
+            client.close()
+            if exp is not None:
+                exp.stop()
+            server.close()
+        if t.is_alive():
+            raise AssertionError("the pair's miner did not drain")
+        return rates, best, hist_summary({
+            "buckets": {k: v - before["buckets"].get(k, 0) for k, v in after["buckets"].items()
+                        if v != before["buckets"].get(k, 0)},
+            "zero": after["zero"] - before["zero"],
+            "count": after["count"] - before["count"],
+            "sum": after["sum"] - before["sum"]})
+
+    def telemetry_pair(self) -> dict:
+        """The telemetry phase's overhead pair: legs A (exporter armed, to a
+        hub in this process) B B A (bare) of :meth:`pair_leg` on the same
+        Requests; each leg's mean nonces/s and its dispatches'
+        ``hist.device_dispatch_s`` summary (this process's registry, the
+        leg's part of it).  Nothing is claimed from it."""
+        from bitcoin_miner_tpu_torch.utils.telemetry import TelemetryHub
+
+        hub = TelemetryHub(0, source=None).start()
+        pair, disp, seen = {"armed": [], "bare": []}, {}, set()
+        try:
+            for leg in ("armed", "bare", "bare", "armed"):
+                rates, found, summary = self.pair_leg(leg == "armed", hub.port)
+                seen.add(found)
+                pair[leg].append(sum(rates) / len(rates))
+                disp.setdefault(leg, []).append(summary)
+                log(f"  pair leg {leg}: {pair[leg][-1]:,.0f} nonces/s per 1e9 Request "
+                    f"(mean of {len(rates)}); their dispatches {summary} [{self.card}]")
+            merged = hub.fleet.export_sources().get("pair")
+        finally:
+            hub.close()
+        if merged is None or len(seen) != 1:
+            raise AssertionError(f"the pair: the exporter never reached the hub "
+                                 f"({merged is not None}) or the legs disagree ({seen})")
+        log(f"  A B B A nonces/s per 1e9 Request, exporter armed {pair['armed']}, bare "
+            f"{pair['bare']} [{self.card}] (no claim)")
+        return dict(nonces_per_s=pair, dispatch=disp, interval_s=TELE_INTERVAL, card=self.card)
+
     def phase_hot_path(self) -> None:
         """The hot plane: (a) the merge kernel against its plain version;
         (b) hot sweeps against per-chunk ones and the oracle; (c) the hot
@@ -1868,6 +2316,7 @@ class Smoke:
             ("mesh path", self.phase_mesh_path),
             ("multihost", self.phase_multihost),
             ("serving path", self.phase_serving),
+            ("telemetry path", self.phase_telemetry),
             ("hot path", self.phase_hot_path),
             ("numbers", self.phase_numbers),
         ]
@@ -1886,6 +2335,21 @@ class Smoke:
         if self.failures:
             log(f"FAILED phases: {self.failures}")
             return 1
+        for run_name in ("throttled", "clean"):
+            for name, row in self.tele[run_name]["miners"].items():
+                log(f"telemetry path, {run_name} run, {name}: hist.device_dispatch_s mean "
+                    f"{row['dispatch']['mean_s'] * 1e3:.2f} ms p50 "
+                    f"{row['dispatch']['p50_s'] * 1e3:.1f} ms p95 "
+                    f"{row['dispatch']['p95_s'] * 1e3:.1f} ms over {row['launches']} "
+                    f"dispatches; the kernel's per full dispatch ('numbers') "
+                    f"{self.k_stats['ms']:.2f} ms ('cmu440'), "
+                    f"{self.k_stats['ms_56_chars']:.2f} ms (56 chars) [{self.card}]")
+        for leg, rows in self.tele["pair"]["dispatch"].items():
+            log(f"telemetry path, one miner alone ({leg} legs): hist.device_dispatch_s "
+                f"{[(round(r['mean_s'] * 1e3, 2), round(r['p50_s'] * 1e3, 1), round(r['p95_s'] * 1e3, 1)) for r in rows]} "
+                f"ms (mean, p50, p95) against {self.k_stats['ms']:.2f} ms of kernel; Request "
+                f"{[round(1e3 * TELE_PAIR_SIZE / r, 2) for r in self.tele['pair']['nonces_per_s'][leg]]} "
+                f"ms (mean per leg) [{self.card}]")
         s, f, b, h = self.k_stats, self.f_stats, self.b_stats, self.h_stats
         common = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms")
         line = {"kernels": [{
@@ -1938,7 +2402,7 @@ class Smoke:
                 "sass", "ptxas")},
         }], "launches_preimage_path": s["launches_preimage"], "native": self.native,
             "mesh_path": self.mesh, "multihost_ranks": self.multihost,
-            "serving_path": self.serving, "hot_path": self.hot}
+            "serving_path": self.serving, "telemetry_path": self.tele, "hot_path": self.hot}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch

@@ -148,7 +148,7 @@ def test_watchdog_drill_downgrades_torch_to_cpu(monkeypatch, capfd):
         ts.close()
     err = capfd.readouterr().err
     lines = [ln for ln in err.splitlines() if "downgrading" in ln]
-    assert lines == ["miner: tier 'torch' wedged (> 1 s/chunk); downgrading to 'cpu' "
+    assert lines == ["miner: tier 'torch' wedged (> 1s/chunk); downgrading to 'cpu' "
                      "(downgrade 1)"]
 
 
@@ -216,7 +216,7 @@ def test_watchdog_wedged_cuda_downgrades_to_host_not_the_card(monkeypatch, capfd
     finally:
         ts.close()
     lines = [ln for ln in capfd.readouterr().err.splitlines() if "downgrading" in ln]
-    assert lines == ["miner: tier 'cuda' wedged (> 0.5 s/chunk); downgrading to 'cpu' "
+    assert lines == ["miner: tier 'cuda' wedged (> 0.5s/chunk); downgrading to 'cpu' "
                      "(downgrade 1)"]
 
 

@@ -9,8 +9,11 @@
   staged by the other's ``main``, in both directions; a file of another
   workload stages nothing, in both; a resubmitted job resumes from it.
 - The CLI contracts: each package's ``server.main`` and ``client.main``
-  print the same stdout for the same argv, and every server flag whose
-  module is not ported yet stops ``main`` before it binds a port.
+  print the same stdout for the same argv, every server flag whose
+  module is not ported yet stops ``main`` before it binds a port, and every
+  spelling of the fleet metrics plane's flags arms a hub with the sink it
+  names (a bad ``--slo=`` value or a busy telemetry port stops ``main``
+  with one line before the serving port binds).
 - The three CLIs as processes: a job runs from the port client through the
   port server to a port miner with no module of JAX or of the JAX package
   loaded in any of them.
@@ -18,6 +21,7 @@
 
 import io
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -251,11 +255,8 @@ def test_client_cli_matches_reference(argv):
 
 
 UNPORTED_FLAGS = ["--gateway", "--cache=c.json", "--spans=s.json", "--rate=5", "--burst=3",
-                  "--max-queued=9", "--prefill=100", "--telemetry-port=7000",
-                  "--fleet-log=f.jsonl", "--prom=p.txt", "--slo", "--slo=x", "--autoscale",
-                  "--autoscale=x"]
-UNPORTED_ENV = ["BMT_PREFILL", "BMT_TELEMETRY_PORT", "BMT_FLEET_LOG", "BMT_PROM", "BMT_SLO",
-                "BMT_AUTOSCALE", "BMT_CHAOS_SCENARIO"]
+                  "--max-queued=9", "--prefill=100", "--autoscale", "--autoscale=x"]
+UNPORTED_ENV = ["BMT_PREFILL", "BMT_AUTOSCALE", "BMT_CHAOS_SCENARIO"]
 
 
 @pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
@@ -277,6 +278,126 @@ def test_unported_server_flag_fails_before_binding(spelling, shell, tmp_path, mo
         assert server.main(argv) == 0
     name = spelling.partition("=")[0]
     assert out.getvalue() == f"Invalid server configuration: {name} is not ported yet\n"
+
+
+def _free_udp_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# (spelling, what the hub must carry): "port" the telemetry port asked for,
+# "log"/"prom" the sink's file name, "slo" the SLO names armed.
+DEFAULT_SLOS = ["request-p95", "chunk-rtt-p95", "orphan-rate", "miner-liveness"]
+HUB_SPELLINGS = [
+    ("--telemetry-port=", "port"), ("--fleet-log=f.jsonl", "log"), ("--prom=p.txt", "prom"),
+    ("--slo", "slo"), ("--slo=chunk_p95=3,burn=2", "slo"), ("BMT_TELEMETRY_PORT", "port"),
+    ("BMT_FLEET_LOG=f.jsonl", "log"), ("BMT_PROM=p.txt", "prom"), ("BMT_SLO=1", "slo"),
+]
+
+
+def _apply_spelling(spelling, argv, monkeypatch, value=""):
+    """Put ``spelling`` (a flag, or ``NAME[=value]`` for the environment)
+    into ``argv`` or the environment; ``value`` completes a bare
+    ``--telemetry-port=`` / ``BMT_TELEMETRY_PORT``."""
+    if spelling.startswith("BMT_"):
+        name, _, val = spelling.partition("=")
+        monkeypatch.setenv(name, val or value)
+    else:
+        argv.append(spelling + (value if spelling.endswith("=") else ""))
+
+
+@pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
+@pytest.mark.parametrize("spelling,sink", HUB_SPELLINGS, ids=[s for s, _ in HUB_SPELLINGS])
+def test_fleet_plane_flag_arms_hub(spelling, sink, shell, tmp_path, monkeypatch):
+    """Every spelling arms one started hub, hands it to the shell's engine
+    and closes it when ``main`` returns."""
+    from bitcoin_miner_tpu_torch.utils.slo import SloEngine
+
+    monkeypatch.chdir(tmp_path)
+    handed = []
+
+    def fake_serve(srv, **kw):
+        handed.append(kw["telemetry"])
+
+    class FakeIngress:
+        def __init__(self, port, **kw):
+            handed.append(kw["telemetry"])
+            self.port, self._thread, self.error = port, None, None
+
+        def start(self):
+            return self
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(server, "serve", fake_serve)
+    monkeypatch.setattr(server, "AsyncIngress", FakeIngress)
+    tport = _free_udp_port()
+    argv = ["server", "0", *shell]
+    _apply_spelling(spelling, argv, monkeypatch, str(tport))
+    with redirect_stdout(io.StringIO()) as out:
+        assert server.main(argv) == 0
+    assert "Traceback" not in out.getvalue()
+    (hub,) = handed
+    assert hub._stop.is_set(), "main returned with the hub still open"
+    if sink == "port":
+        assert hub.port == tport
+    else:
+        assert hub.port != 0  # an ephemeral listener all the same
+    assert hub._fleet_log == ("f.jsonl" if sink == "log" else None)
+    assert hub._prom_path == ("p.txt" if sink == "prom" else None)
+    if sink == "slo":
+        assert isinstance(hub._slo, SloEngine)
+        assert [s.name for s in hub._slo.specs] == DEFAULT_SLOS
+    else:
+        assert hub._slo is None
+
+
+# (spelling, the one line main prints): a bad --slo= value (the reference's
+# message), a busy telemetry port.
+BUSY = "busy"
+HUB_REFUSALS = [("--slo=x", "--slo entry 'x' is not key=value"),
+                ("BMT_SLO=x", "--slo entry 'x' is not key=value"),
+                ("--slo=burn=fast", "bad --slo entry 'burn=fast': could not convert string "
+                                    "to float: 'fast'"),
+                ("--telemetry-port=", BUSY), ("BMT_TELEMETRY_PORT", BUSY)]
+
+
+@pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
+@pytest.mark.parametrize("spelling,line", HUB_REFUSALS, ids=[s for s, _ in HUB_REFUSALS])
+def test_fleet_plane_flag_fails_before_binding(spelling, line, shell, tmp_path, monkeypatch):
+    """A bad ``--slo=`` and a busy telemetry port print one line and
+    return 0 before the serving port binds (the reference's friendly
+    contract: no traceback)."""
+    monkeypatch.chdir(tmp_path)
+    real_server = lsp.Server
+
+    def guarded(port, params=None, host="127.0.0.1", label=None):
+        if label != "telemetry-hub":
+            raise AssertionError("the server bound its serving port")
+        return real_server(port, params, host, label=label)
+
+    def bound(*_a, **_k):
+        raise AssertionError("the server bound its serving port")
+
+    squatter = lsp.Server(0, PARAMS)
+    try:
+        monkeypatch.setattr(server.lsp, "Server", guarded)
+        monkeypatch.setattr(server, "AsyncIngress", bound)
+        argv = ["server", "6060", *shell]
+        _apply_spelling(spelling, argv, monkeypatch, str(squatter.port))
+        with redirect_stdout(io.StringIO()) as out:
+            assert server.main(argv) == 0
+    finally:
+        squatter.close()
+    text = out.getvalue()
+    assert text.count("\n") == 1 and text.endswith("\n"), text
+    if line is BUSY:
+        assert "Traceback" not in text and "Server listening" not in text
+        assert "in use" in text, text
+    else:
+        assert text == line + "\n"
 
 
 # ------------------------------------------------------------- the three CLIs
@@ -335,3 +456,8 @@ def test_three_port_clis_run_a_job_without_jax(tmp_path):
     for err in (cli_err, mnr_err, srv_err):
         assert "FORBIDDEN []" in err, err
     assert (tmp_path / "log.txt").exists()
+    # The miner's stderr ends with its lifetime line (then the wrapper's
+    # exit report): one chunk of JOB[1] + 1 nonces.
+    *_rest, lifetime, _report = mnr_err.splitlines()
+    assert re.fullmatch(rf"miner: {JOB[1] + 1} nonces swept \([\d,]+/s lifetime\)",
+                        lifetime), mnr_err
