@@ -19,8 +19,9 @@ search in a chain of the requested tier and the workload's host tiers below
 it (cuda → cpu → hashlib): a chunk that exceeds the tier's budget re-runs
 on the next tier, and every downgrade is counted and logged on stderr.  A
 ``cuda`` tier that fails to build or launch fails the chunk; it is never
-replaced by the plain version.  ``--throttle-nps`` paces the sweep,
-``BMT_MINER_LOG`` logs each chunk's submit and completion, and SIGTERM
+replaced by the plain version.  ``--throttle-nps`` (env
+``BMT_MINER_THROTTLE_NPS``) paces the sweep, ``BMT_MINER_LOG`` logs each
+chunk's submit and completion, and SIGTERM
 drains: the chunks already received are finished and answered before the
 miner exits.
 
@@ -756,8 +757,13 @@ def main(argv=None) -> int:
     # --watchdog SECONDS wraps the search in the workload's tier ladder
     # with a per-chunk wedge budget.
     parser.add_argument("--watchdog", type=float, default=None)
-    # Paced capacity: sweep at a fixed nonces/s (sleep-dominated).
-    parser.add_argument("--throttle-nps", type=float, default=0.0)
+    # Paced capacity: sweep at a fixed nonces/s (sleep-dominated), so N
+    # workers on one card model N units of capacity.  BMT_MINER_THROTTLE_NPS
+    # is the env spelling, which the autoscaler's spawned workers inherit.
+    parser.add_argument(
+        "--throttle-nps", type=float,
+        default=float(os.environ.get("BMT_MINER_THROTTLE_NPS", "0") or 0),
+    )
     # The hash family; must match the server's (the wire never names it).
     parser.add_argument("--workload", default=os.environ.get("BMT_WORKLOAD") or None)
     # Shards of a device tier: cuda:0..N-1, or N CPU shards with --device cpu.

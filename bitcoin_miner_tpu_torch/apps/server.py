@@ -32,14 +32,27 @@ text) and ``--slo[=CONF]`` (burn-rate alerts), env ``BMT_TELEMETRY_PORT``,
 :class:`~bitcoin_miner_tpu_torch.utils.telemetry.TelemetryHub`, which the
 engine ticks.  A bad ``--slo=`` value or a busy telemetry port prints one
 line and returns 0 before the serving port binds (the reference binds the
-serving port first on the blocking shell).  What differs besides: the
-serving gateway, the autoscaler and the chaos layer are not ported yet,
-so ``main`` refuses their flags (``--gateway``, ``--cache=``,
-``--spans=``, ``--rate=``, ``--burst=``, ``--max-queued=``,
-``--prefill=``, ``--autoscale[=]``) and their environment spellings
-(``BMT_PREFILL``, ``BMT_AUTOSCALE``, ``BMT_CHAOS_SCENARIO``) with
-``Invalid server configuration: <flag> is not ported yet`` before binding
-a port.
+serving port first on the blocking shell).
+
+The serving gateway is ported: ``--gateway`` puts a
+:class:`~bitcoin_miner_tpu_torch.gateway.Gateway` (coalescing, the result
+cache, the span store, admission control) in front of the scheduler in
+both shells; ``--cache=FILE`` / ``--spans=FILE`` persist its stores,
+``--rate=`` / ``--burst=`` / ``--max-queued=`` tune admission (defaults
+5.0, 10.0, 256; ``--rate=0`` is unlimited) and ``--prefill=N`` (env
+``BMT_PREFILL``) arms N-nonce speculative gap-sweeps after a second of
+idleness.  Each of these implies ``--gateway``; a bad number prints
+``<flag> is not a number.`` and returns 0 before binding.  So is the
+autoscaler: ``--autoscale[=SPEC]`` (env ``BMT_AUTOSCALE``; grammar in
+:func:`~bitcoin_miner_tpu_torch.autoscale.parse_autoscale_config`) spawns
+and drains port miner workers against the live serving port off the hub's
+burn alerts and ``fleet.utilization``, re-weights the gateway's tenants
+when ``weights=`` is given, and publishes its ``status()`` through the
+hub; a bad spec prints one line and returns 0 before binding.  Its
+workers' backend defaults to ``"auto"`` (the cuda rung on the card),
+where the reference's defaults to ``"cpu"``.  Only the chaos layer is not
+ported yet: ``BMT_CHAOS_SCENARIO`` stops ``main`` with ``Invalid server
+configuration: BMT_CHAOS_SCENARIO is not ported yet`` before it binds.
 """
 
 from __future__ import annotations
@@ -771,15 +784,9 @@ class AsyncIngress:
         return self._server.conns_live()
 
 
-#: Server flags whose modules are not ported yet (gateway/, autoscale/):
-#: ``main`` refuses each before binding.
-_UNPORTED_EXACT = ("--gateway", "--autoscale")
-_UNPORTED_VALUED = (
-    "--cache=", "--spans=", "--rate=", "--burst=", "--max-queued=",
-    "--prefill=", "--autoscale=",
-)
-#: Their environment spellings, and the chaos layer's scenario switch.
-_UNPORTED_ENV = ("BMT_PREFILL", "BMT_AUTOSCALE", "BMT_CHAOS_SCENARIO")
+#: The environment switch of the chaos layer, which is not ported yet:
+#: ``main`` refuses it before binding.
+_UNPORTED_ENV = ("BMT_CHAOS_SCENARIO",)
 
 
 def _start_hub(tport: Optional[int], fleet_log, prom_path, slo_conf):
@@ -795,6 +802,47 @@ def _start_hub(tport: Optional[int], fleet_log, prom_path, slo_conf):
     return TelemetryHub(
         tport or 0, slo=engine, fleet_log=fleet_log, prom_path=prom_path,
     ).start()
+
+
+def _start_autoscale(live_port: int, cfg, driver, gateway, lock, hub, tport):
+    """The autoscale plane for ``main``, started against the live serving
+    port: the controller reads the hub's burn verdicts (none without a
+    hub: the up axis stays quiet) and the ``fleet.utilization`` gauge each
+    beat, spawns and drains port miner workers, and re-weights the
+    ``gateway``'s tenants under ``lock`` when ``weights=`` is given.
+    Returns ``(pump, workers)``."""
+    from ..autoscale import (
+        AutoscaleController,
+        ControllerPump,
+        GatewayWeightActuator,
+        ProcessActuator,
+    )
+
+    workers = ProcessActuator(
+        live_port,
+        backend=driver["backend"],
+        telemetry=f"127.0.0.1:{tport}" if tport else None,
+    )
+    weights = None
+    if gateway is not None and cfg.overload_weights:
+        weights = GatewayWeightActuator(gateway, lock)
+
+    def burn():
+        if hub is None:
+            return None
+        return ((hub.last_state() or {}).get("slo") or {}).get("alerts")
+
+    controller = AutoscaleController(
+        workers,
+        burn=burn,
+        utilization=lambda: METRICS.gauges().get("fleet.utilization"),
+        weights=weights,
+        config=cfg,
+    )
+    if hub is not None:
+        # The controller's state rides the fleet log.
+        hub.add_extra("autoscale", controller.status)
+    return ControllerPump(controller, interval=driver["interval"]).start(), workers
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -844,6 +892,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     # front end (AsyncIngress) instead of the blocking facade — O(1)
     # threads in live conns.  Same engine, same contracts.
     async_ingress = os.environ.get("BMT_ASYNC_INGRESS", "") not in ("", "0")
+    # The serving gateway: --gateway arms coalescing + the result cache +
+    # the interval span store + admission control; --cache=FILE /
+    # --spans=FILE persist the stores, --rate / --burst / --max-queued tune
+    # admission, --prefill=N (env BMT_PREFILL) arms N-nonce speculative
+    # gap-sweeps while idle.  Every one of them implies --gateway.
+    gateway_on = False
+    cache_path = None
+    spans_path = None
+    rate: Optional[float] = 5.0
+    burst = 10.0
+    max_queued = 256
+    prefill = os.environ.get("BMT_PREFILL") or None
+    # --autoscale[=SPEC] arms the SLO-burn-driven controller against THIS
+    # serving port (env BMT_AUTOSCALE; grammar in
+    # autoscale.parse_autoscale_config).
+    autoscale_conf = os.environ.get("BMT_AUTOSCALE") or None
     unported = [name for name in _UNPORTED_ENV if os.environ.get(name)]
     pos = []
     for a in argv[1:]:
@@ -875,8 +939,33 @@ def main(argv: Optional[List[str]] = None) -> int:
             slo_conf = "1"
         elif a.startswith("--slo="):
             slo_conf = a.split("=", 1)[1]
-        elif a in _UNPORTED_EXACT or a.startswith(_UNPORTED_VALUED):
-            unported.append(a.partition("=")[0])
+        elif a.startswith("--prefill="):
+            prefill = a.split("=", 1)[1]
+        elif a == "--autoscale":
+            autoscale_conf = "1"
+        elif a.startswith("--autoscale="):
+            autoscale_conf = a.split("=", 1)[1]
+        elif a == "--gateway":
+            gateway_on = True
+        elif a.startswith("--cache="):
+            gateway_on = True
+            cache_path = a.split("=", 1)[1]
+        elif a.startswith("--spans="):
+            gateway_on = True
+            spans_path = a.split("=", 1)[1]
+        elif a.startswith(("--rate=", "--burst=", "--max-queued=")):
+            gateway_on = True  # admission knobs imply the gateway, like --cache
+            name, _, val = a.partition("=")
+            try:
+                if name == "--rate":
+                    rate = float(val) or None  # 0 = unlimited
+                elif name == "--burst":
+                    burst = float(val)
+                else:
+                    max_queued = int(val)
+            except ValueError:
+                print(f"{a} is not a number.")
+                return 0
         else:
             pos.append(a)
     if len(pos) != 1:
@@ -893,6 +982,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         # or stop the server before it binds anything.
         print(f"Invalid server configuration: {unported[0]} is not ported yet")
         return 0
+    # Parse the autoscale policy up front: a spec typo must fail fast,
+    # before anything binds a port or spawns a thread.
+    as_cfg = as_driver = None
+    if autoscale_conf:
+        from ..autoscale import parse_autoscale_config
+
+        try:
+            as_cfg, as_driver = parse_autoscale_config(autoscale_conf)
+        except ValueError as e:
+            print(str(e))
+            return 0
     # Any fleet-plane knob arms the hub: the sidecar listener needs a
     # port, but the SLO engine and the publish sinks are useful even on a
     # single-process server (the local registry is its own source).
@@ -943,23 +1043,59 @@ def main(argv: Optional[List[str]] = None) -> int:
                 )
             if adaptive_depth:
                 sched_kw["adaptive_depth"] = True
+            prefill_n = int(prefill) if prefill is not None else 0
         except ValueError as e:
             print("Invalid scheduler configuration:", e)
             if server is not None:
                 server.close()
             return 0
+        if prefill_n > 0:
+            # Prefill is a gateway feature: both spellings (--prefill= and
+            # BMT_PREFILL) imply --gateway, or the knob would silently no-op.
+            gateway_on = True
         sched = Scheduler(resume_state=resume, workload=wl, **sched_kw)
+        if gateway_on:
+            from ..gateway import Gateway, ResultCache, SpanStore
+
+            sched = Gateway(
+                sched,
+                cache=ResultCache(path=cache_path, workload=workload.name),
+                spans=SpanStore(path=spans_path, workload=workload.name),
+                rate=rate,
+                burst=burst,
+                max_queued=max_queued,
+                prefill=prefill_n,
+                # Speculate only after a full second of continuous idleness:
+                # a tick landing in the gap between back-to-back requests
+                # must not hand a miner soon-to-be-orphaned work.
+                prefill_idle_s=1.0,
+            )
+        # The event lock is made HERE when autoscale is on and handed to the
+        # shell, so the weight actuator and the serve plane hold the SAME
+        # lock.  Arming waits for the live port (the ingress binds in
+        # start()).
+        pump = workers = None
+        ev_lock = threading.Lock() if as_cfg is not None else None
+
+        def _arm_autoscale(live_port: int) -> None:
+            nonlocal pump, workers
+            pump, workers = _start_autoscale(
+                live_port, as_cfg, as_driver, sched if gateway_on else None, ev_lock,
+                hub, tport)
+
         try:
             if async_ingress:
                 try:
                     ingress = AsyncIngress(
                         port, scheduler=sched, checkpoint_path=checkpoint_path,
-                        telemetry=hub,
+                        telemetry=hub, lock=ev_lock,
                     ).start()
                 except OSError as e:
                     print(str(e))
                     return 0
                 print("Server listening on port", ingress.port)
+                if as_cfg is not None:
+                    _arm_autoscale(ingress.port)
                 try:
                     # The engine runs on the ingress loop + ticker; this
                     # thread just waits for shutdown (Ctrl-C / SIGTERM).
@@ -973,9 +1109,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                     # shell where the same exception propagates out of serve().
                     raise ingress.error
             else:
+                if as_cfg is not None:
+                    _arm_autoscale(server.port)
                 serve(server, scheduler=sched, checkpoint_path=checkpoint_path,
-                      telemetry=hub)
+                      telemetry=hub, lock=ev_lock)
         finally:
+            if pump is not None:
+                pump.stop()
+            if workers is not None:
+                workers.stop_all()
             if server is not None:
                 server.close()
         return 0

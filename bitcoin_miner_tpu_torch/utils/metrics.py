@@ -292,8 +292,8 @@ def format_quantiles(h) -> str:
 #: does not emit (``tests/test_torch_telemetry.py`` scans the source for
 #: drift in either direction).  Kinds by prefix: ``hist.*`` are histograms
 #: (observe), ``gauge.*`` AND ``fleet.*`` are gauges (set_gauge — the
-#: merged fleet-view levels published by utils/telemetry.py), everything
-#: else is a counter (inc).
+#: merged fleet-view levels published by utils/telemetry.py), and so are
+#: the names marked (gauge) below; everything else is a counter (inc).
 #:
 #:   lsp.retransmits       data messages resent on epoch ticks
 #:   lsp.delivered         in-order payloads handed to the application
@@ -312,12 +312,35 @@ def format_quantiles(h) -> str:
 #:   sched.steals              straggler chunk tails re-dispatched to idle miners
 #:   sched.prefill_chunks      chunks dispatched for speculative prefill jobs
 #:   sched.depth_adapt         adaptive pipeline-depth window re-sizes
+#:   gateway.requests          client Requests that reached the gateway
+#:   gateway.cache_hits        answered from the content-addressed cache
+#:   gateway.cache_evictions   cache entries dropped by the LRU bound
+#:   gateway.coalesced         Requests that joined an in-flight twin sweep
+#:   gateway.admitted          signatures dispatched into the scheduler
+#:   gateway.completed         shared sweeps finished (one per signature)
+#:   gateway.fanout            extra conns served by a coalesced Result
+#:   gateway.throttled         Requests queued by admission control
+#:   gateway.shed              Requests dropped on backlog overflow (conn closed)
+#:   gateway.span_hits         requests answered whole from solved spans
+#:   gateway.span_partial      requests that swept only their uncovered gaps
+#:   gateway.nonces_saved      nonces answered from spans instead of swept
+#:   gateway.span_evictions    span-store data keys dropped by the LRU bound
+#:   gateway.inflight_span_waits  sub-range requests parked on a covering running sweep
+#:   gateway.prefill_jobs      speculative gap-sweep jobs submitted while idle
+#:   gateway.prefill_preempted prefill jobs cancelled by an arriving real request
+#:   gateway.coalesce_lost     nonces whose sub-range answerability span coalescing erased
 #:   fed.handoff_jobs          resumable identities imported from a draining peer
 #:   fed.conns_live            live peer conns at the federation transport (gauge)
 #:   ingress.events            payloads dispatched on the asyncio ingress loop
 #:   ingress.conns_lost        conns the async ingress reaped after epoch loss
 #:   ingress.cross_thread_writes  off-loop writes hopped onto the ingress loop
 #:   gw.conns_live             live conns at the public serving transport (gauge)
+#:   autoscale.scale_ups       worker spawn actions taken by the autoscaler
+#:   autoscale.scale_downs     clean-drain retire actions (incl. cell drains)
+#:   autoscale.actions_suppressed  ticks an action was wanted but held (hysteresis/cooldown)
+#:   autoscale.reweights       tenant WFQ weight override apply/restore actions
+#:   autoscale.actuator_failures   actuator calls that raised (queued for retry)
+#:   autoscale.target_workers  the controller's current worker target (gauge)
 #:   client.resubmits          jobs resubmitted after a lost client conn
 #:   miner.nonces              nonces swept by this process's miner loop
 #:   miner.reconnects          successful re-Joins after a lost server conn
@@ -333,7 +356,9 @@ def format_quantiles(h) -> str:
 #:   slo.alerts_resolved       firing SLO alerts that cleared
 #:   sanitize.loop_blocked     blocking-on-loop trips raised by the sanitizer
 #:   sanitize.threads_leaked   threads found beyond a census baseline at reap time
+#:   hist.request_s            request→result latency at the gateway (s)
 #:   hist.chunk_rtt_s          chunk dispatch→Result round-trip (s)
+#:   hist.admission_wait_s     admission-queue wait before dispatch (s)
 #:   hist.device_dispatch_s    per-dispatch device enqueue→fetch time (s)
 #:   hist.miner_chunk_s        miner-side chunk submit→solve time (s)
 #:   hist.lsp_rtt_s            LSP data→ack round-trip, Karn-filtered (s)

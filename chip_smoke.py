@@ -90,7 +90,33 @@ Phases (any failure ends the run non-zero, with no result line):
    miner's lifetime line; a clean run (two miners, bare ``--slo``) with no
    alert; each miner's per-dispatch p50/p95; an A B B A pair of 1e9
    Requests on one miner, exporter armed against bare;
-14. hot path — the hot plane's merge kernel against its plain version,
+14. gateway path — the serving gateway: ``apps.server --gateway
+   --cache=F --spans=F`` on each shell with two plain ``apps.miner``
+   processes at their defaults (the cuda rung) and port clients: (a)
+   four identical Requests at once share one sweep (their chunks tile the
+   range once; the miners' launches equal those chunks' launches swept here;
+   ``gateway.coalesced`` 3); (b) the same Request from the cache and (c) a
+   sub-range of whole solved spans, each with no launch; (d) an
+   overlapping Request sweeps only its uncovered gap; then the blocking
+   server restarted on the same files with ``--prefill`` and small
+   ``--rate=``/``--burst=``/``--max-queued=``: (e) the cache answers again
+   with no launch; (f) one host's flood of six Requests is throttled and
+   three are shed (their conns closed) while a second host's Request
+   (from 127.0.0.2) is served; (g) after an idle second the prefill legs
+   launch on the card and a real Request preempts them.  Every Result
+   held to hashlib and ``sweep_min_hash``; counters from the fleet log;
+   each leg's time to Result and launches per miner;
+15. autoscale path — ``apps.server --gateway --telemetry-port --slo=
+   --autoscale=`` with one miner paced by ``BMT_MINER_THROTTLE_NPS`` under
+   two streams of Requests: the request alert fires, the controller
+   spawns two ``python -m bitcoin_miner_tpu_torch.apps.miner`` workers
+   (paced by the inherited variable, the cuda rung), each miner answers
+   chunks, the load stops, the alert resolves and the controller drains
+   the newest worker: it exits 0 with ``drained`` in its trace; a spawned
+   worker launched the min-hash kernel (each observed by a
+   ``sitecustomize`` hook, see WORKER_HOOK); every Result exact; the
+   controller's timeline from its trace and ``status()``;
+16. hot path — the hot plane's merge kernel against its plain version,
    bit-exact, over seeded sequences and random carries with one and two
    shard outputs (ties, sentinels, a vacant carry against h0 == U32_MAX);
    ``sweep_min_hash(hot=True)`` against the per-chunk sweep on 1e9-nonce
@@ -104,7 +130,7 @@ Phases (any failure ends the run non-zero, with no result line):
    (per-chunk, hot) in nonces/s; the merge's device time per launch (a
    CUDA Graph of launches) beside an empty kernel's timed the same way,
    the host's issue time per launch and its plain version's;
-15. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+17. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
@@ -234,6 +260,104 @@ TELE_PHASE_S = 240
 TELE_PAIR_REQUESTS = 9  # per leg of the overhead pair; the first is not timed
 TELE_PAIR_SIZE = 10**9  # nonces per Request of the pair
 LIFETIME = re.compile(r"miner: (\d+) nonces swept \([\d,]+/s lifetime\)")
+# The observer of every port miner process in the gateway and autoscale
+# phases, installed as ``sitecustomize`` on the PYTHONPATH of their fleets:
+# in a ``python -m bitcoin_miner_tpu_torch.apps.miner`` process (the plain
+# binary, as the autoscaler spawns it) it arms the tracer, publishes the
+# min-hash kernel's launch count to ``launches.<pid>`` whenever it moves,
+# and at exit writes ``worker.<pid>.json``: argv, launches, the code given
+# to ``sys.exit`` and the miner's trace events.  Any other process only
+# chains to the next ``sitecustomize`` on the path.
+WORKER_HOOK = """
+import os, sys
+
+
+def _chain():
+    import importlib.machinery, importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    for p in sys.path:
+        if os.path.abspath(p or ".") == here:
+            continue
+        spec = importlib.machinery.PathFinder.find_spec("sitecustomize", [p])
+        if spec is not None and spec.loader is not None:
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+            return
+
+
+_chain()
+_DIR = os.environ.get("SMOKE_WORKER_DIR")
+if _DIR and "bitcoin_miner_tpu_torch.apps.miner" in getattr(sys, "orig_argv", ()):
+    import atexit, json, threading, time
+    from bitcoin_miner_tpu_torch.utils.trace import TRACE
+
+    TRACE.enable(capacity=1 << 20)
+    _code = []
+    _sys_exit = sys.exit
+
+    def _exit(code=None):
+        _code.append(code)
+        _sys_exit(code)
+
+    sys.exit = _exit
+
+    def _launches():
+        # The module may be mid-import when this runs: no wrapper yet is 0.
+        m = sys.modules.get("bitcoin_miner_tpu_torch.ops.sha256_minhash")
+        return getattr(getattr(m, "minhash", None), "launches", 0)
+
+    def _publish():
+        live, last = os.path.join(_DIR, f"launches.{os.getpid()}"), None
+        while True:
+            n = _launches()
+            if n != last:
+                with open(live + ".tmp", "w") as f:
+                    f.write(str(n))
+                os.replace(live + ".tmp", live)
+                last = n
+            time.sleep(0.01)
+
+    def _report():
+        rows = TRACE.drain()
+        path = os.path.join(_DIR, f"worker.{os.getpid()}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump({"pid": os.getpid(), "argv": sys.orig_argv, "launches": _launches(),
+                       "exit": _code[-1] if _code else None,
+                       "miner_events": [r["event"] for r in rows if r["span"] == "miner"]}, f)
+        os.replace(path + ".tmp", path)
+
+    threading.Thread(target=_publish, name="smoke-launches", daemon=True).start()
+    atexit.register(_report)
+"""
+# The gateway phase: the coalesced job (GATE_TWINS identical Requests at
+# once; 1e10 nonces, so every twin lands while it sweeps), the gap the
+# overlapping Request adds below it, the restarted server's prefill size
+# and admission knobs (a 0.5/s bucket of 1 and a backlog of 2: of
+# GATE_FLOOD Requests from one host at once, 1 is admitted, 2 queue and 3
+# are shed), each flood Request's size, the preempting Request and the
+# phase's time limit.
+GATE_JOB = ("cmu440", 2_000_000_000, 11_999_999_999)
+GATE_TWINS = 4
+GATE_GAP = 1_000_000_000
+GATE_PREFILL = 20_000_000_000
+GATE_ADMISSION = ["--rate=0.5", "--burst=1", "--max-queued=2"]
+GATE_FLOOD = 6
+GATE_FLOOD_SIZE = 500_000_000
+GATE_PREEMPT = ("preempt", 0, 1_999_999_999)
+GATE_PHASE_S = 200
+# The autoscale phase: every miner's pace (nonces/s, BMT_MINER_THROTTLE_NPS;
+# the kernel sweeps an order of magnitude faster, so the pace is the
+# capacity), the Requests' size (2 s on one paced miner), the concurrent
+# load streams, the SLO (a Request over 0.5 s is bad, 90% must be good, 4 s
+# / 8 s windows, burn 2, from 2 events; the liveness budget wide, so a
+# drained worker aging out of the fleet view does not read as burn), the
+# autoscale spec (one to two spawned workers, 2 ticks of hold, a 0.5 s
+# beat) and the phase's time limit.
+AS_PACE_NPS = 1_000_000_000
+AS_REQUEST = 2_000_000_000
+AS_STREAMS = 2
+AS_SLO = "req_p95=0.5,objective=0.9,window=4/8,burn=2,min_events=2,offline=0.5"
+AS_SPEC = "min=1,max=2,hold=2,up_cooldown=4,down_cooldown=6,interval=0.5"
+AS_PHASE_S = 150
 
 
 def log(*a) -> None:
@@ -490,6 +614,124 @@ class TeleFleet(ServeFleet):
         return out
 
 
+class GateFleet(ServeFleet):
+    """A serving fleet whose miners are the plain port miner binary
+    (``python -m bitcoin_miner_tpu_torch.apps.miner``, at its defaults:
+    the cuda rung on the card), observed by WORKER_HOOK: the fleet's
+    PYTHONPATH starts with a directory holding the hook, and its processes
+    report to ``<name>-workers/``.  Processes the server spawns inherit
+    both."""
+
+    def __init__(self, workdir: str, name: str, deadline: float, server_args=(),
+                 env=None) -> None:
+        self.workers = os.path.join(workdir, f"{name}-workers")
+        hook = os.path.join(workdir, "hook")
+        os.makedirs(self.workers)
+        os.makedirs(hook, exist_ok=True)
+        with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+            f.write(WORKER_HOOK)
+        self.extra_env = {"SMOKE_WORKER_DIR": self.workers, **(env or {}),
+                          "PYTHONPATH": os.pathsep.join(
+                              p for p in (hook, ROOT, os.environ.get("PYTHONPATH")) if p)}
+        self.launches_by_miner = []  # each stopped miner's final count
+        super().__init__(workdir, name, deadline, server_args)
+
+    def _spawn(self, label: str, args):
+        self.env.update(self.extra_env)
+        return super()._spawn(label, args)
+
+    def start_port_miners(self, n: int, extra=()) -> None:
+        """``n`` plain port miners at their defaults, all at once, until
+        every one joined."""
+        for _ in range(n):
+            self.miners.append((self._spawn(f"miner{len(self.miners)}", [
+                "-m", "bitcoin_miner_tpu_torch.apps.miner", f"127.0.0.1:{self.port}",
+                *extra]), None))
+        self.wait_for(r"miner (\d+) joined", len(self.miners), SERVE_JOIN_S)
+
+    def live_launches(self) -> dict:
+        """pid -> the min-hash kernel's launches so far, per observed miner
+        process (each publishes its count as it moves)."""
+        out = {}
+        for name in os.listdir(self.workers):
+            if name.startswith("launches.") and not name.endswith(".tmp"):
+                try:
+                    with open(os.path.join(self.workers, name)) as f:
+                        out[int(name.split(".")[1])] = int(f.read() or 0)
+                except (OSError, ValueError):
+                    pass  # mid-replace: read again
+        return out
+
+    def settled(self) -> dict:
+        """:meth:`live_launches` once no count has moved for 0.15 s."""
+        last, since = None, time.monotonic()
+        while True:
+            now = self.live_launches()
+            if now != last:
+                last, since = now, time.monotonic()
+            elif time.monotonic() - since >= 0.15:
+                return now
+            if time.monotonic() > self.deadline:
+                raise AssertionError(f"{self.name}: launch counts never settled")
+            time.sleep(0.02)
+
+    def reports(self) -> dict:
+        """pid -> the exit report of every observed process that ended."""
+        out = {}
+        for name in os.listdir(self.workers):
+            if name.startswith("worker.") and name.endswith(".json"):
+                with open(os.path.join(self.workers, name)) as f:
+                    rep = json.load(f)
+                out[rep["pid"]] = rep
+        return out
+
+    def stop(self) -> None:
+        """SIGTERM the miners this script started (they answer what they
+        hold and exit 0), check each exit and its report, then stop the
+        server in the background."""
+        if self.server.poll() is not None:
+            raise AssertionError(f"{self.name}: the server exited {self.server.returncode} "
+                                 f"before it was stopped: {self.read('server.out')[-2000:]!r}")
+        for p, _conn in self.miners:
+            if p.poll() is None:
+                p.terminate()
+        for i, (p, _conn) in enumerate(self.miners):
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                raise AssertionError(f"{self.name}: miner {i} did not drain")
+            rep = self.reports().get(p.pid)
+            if p.returncode != 0 or rep is None or rep["exit"] != 0:
+                raise AssertionError(f"{self.name}: miner {i} exited {p.returncode}, report "
+                                     f"{rep}: {self.read(f'miner{i}.out')[-2000:]!r}")
+            self.launches_by_miner.append(rep["launches"])
+
+        def stop_server():
+            self.server.send_signal(2)  # SIGINT: serve()'s shutdown, then LSP's
+            try:
+                self.server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.server.kill()
+                self.server.wait()
+
+        self.stopped = threading.Thread(target=stop_server, daemon=True)
+        self.stopped.start()
+
+    def last_state(self) -> dict:
+        """The server's last fleet-log state (its own registry is a source
+        of it), read 2.5 s from now (the hub publishes every 2 s)."""
+        time.sleep(2.5)
+        states = [ln for ln in self.read("fleet.jsonl").splitlines() if ln.strip()]
+        for line in reversed(states):
+            try:
+                return json.loads(line)
+            except ValueError:
+                continue  # torn by a write
+        raise AssertionError(f"{self.name}: no fleet-log state")
+
+
 def parse_prom(text: str) -> dict:
     """Check ``text`` as Prometheus text exposition (version 0.0.4): every
     sample's family declared by one ``# TYPE`` line before it, names and
@@ -629,6 +871,8 @@ class Smoke:
         self.h_stats = {}  # the hot merge kernel's
         self.hot = {}  # the hot path's launches, rates and checks
         self.tele = {}  # the telemetry path's checks, dispatch times and pair
+        self.gate = {}  # the gateway path's legs, counters and launches
+        self.autoscale = {}  # the autoscale path's workers, timeline and launches
 
     # ------------------------------------------------------------ helpers
 
@@ -1769,6 +2013,558 @@ class Smoke:
             shutil.copytree(work, keep, dirs_exist_ok=True)
             shutil.rmtree(work, ignore_errors=True)
 
+    # ----------------------------------------------------- gateway, autoscale
+
+    def gate_client(self, port: int, src=None):
+        """A port LSP client of the server on ``port``, from the loopback
+        address ``src`` when given: another host to the gateway, whose
+        admission keys each client by its address."""
+        import asyncio
+
+        from bitcoin_miner_tpu_torch import lsp, lspnet
+        from bitcoin_miner_tpu_torch.lspnet import udp
+
+        if src is None:
+            return lsp.Client("127.0.0.1", port)
+        real = lspnet.create_client_endpoint
+
+        async def bound(host, p):
+            loop = asyncio.get_running_loop()
+            transport, protocol = await loop.create_datagram_endpoint(
+                udp._QueueProtocol, local_addr=(src, 0))
+            return udp.UDPEndpoint(transport, protocol, remote=(host, p))
+
+        lspnet.create_client_endpoint = bound
+        try:
+            return lsp.Client("127.0.0.1", port)
+        finally:
+            lspnet.create_client_endpoint = real
+
+    def gate_ask(self, port: int, data: str, lo: int, hi: int, src=None,
+                 timeout: float = SERVE_JOB_S):
+        """One Request through a port client; returns ``((hash, nonce) or
+        None when the server closed the conn, seconds to Result)``."""
+        from bitcoin_miner_tpu_torch.apps import client
+
+        conn = self.gate_client(port, src)
+        t0 = time.monotonic()
+        try:
+            got = client.request_once(conn, data, hi, lower=lo, timeout=timeout)
+        finally:
+            dt = time.monotonic() - t0
+            try:
+                conn.close()
+            except Exception:
+                pass  # a shed conn is already gone
+        return got, dt
+
+    @staticmethod
+    def gate_trace(fleet):
+        """The server's trace rows, and per Request signature ``(data,
+        lower, upper)`` the trace ids of its ``gw request`` events."""
+        rows = fleet.trace_events()
+        ids = {}
+        for r in rows:
+            a = r.get("attrs") or {}
+            if (r["span"], r["event"]) == ("gw", "request"):
+                ids.setdefault((a["data"], a["lower"], a["upper"]), []).append(r["trace"])
+        return rows, ids
+
+    @staticmethod
+    def dispatched(rows, tid):
+        """The chunks the scheduler sent miners under trace id ``tid``."""
+        return [(r["attrs"]["lo"], r["attrs"]["hi"]) for r in rows
+                if r["trace"] == tid and (r["span"], r["event"]) == ("sched", "dispatch")]
+
+    def replay(self, search, data, chunks):
+        """The min-hash kernel's launches and the fold of ``chunks`` swept
+        one by one through ``search`` (the miner's own
+        ``make_async_search("cuda")``) in this process."""
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+
+        before, best = minhash.launches, None
+        for lo, hi in chunks:
+            h, n = search.submit(data, lo, hi).result()
+            best = min(best or (h, n), (h, n))
+        return minhash.launches - before, best
+
+    def span_rows(self, fleet, path, data, lo, hi):
+        """``data``'s rows of the span file at ``path`` once they tile
+        ``[lo, hi]`` (the server flushes the store every tick)."""
+        from bitcoin_miner_tpu_torch.utils.intervals import merge_intervals
+
+        deadline = min(time.monotonic() + 10, fleet.deadline)
+        while True:
+            rows = []
+            try:
+                with open(path) as f:
+                    state = json.load(f)
+                rows = sorted(next((r for d, r in state.get("data", ()) if d == data), []))
+            except (OSError, ValueError):
+                pass
+            if merge_intervals([(a, b) for a, b, _h, _n in rows]) == [(lo, hi)]:
+                return rows
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{fleet.name}: the span file never tiled [{lo}, {hi}]: "
+                                     f"{rows}")
+            time.sleep(0.1)
+
+    def gateway_legs(self, fleet, search) -> dict:
+        """Legs (a)-(d) on one gateway fleet (two port miners, nothing else
+        live): (a) GATE_TWINS identical Requests at once; (b) the same
+        Request again; (c) a sub-range of whole solved spans; (d) a range
+        that adds GATE_GAP nonces below the solved ones and ends on a span
+        edge.  Per leg: each Result, its seconds to Result, each miner's
+        launches over the leg.  Returns the legs and their signatures."""
+        from bitcoin_miner_tpu_torch.utils.intervals import merge_intervals
+
+        data, lo, hi = GATE_JOB
+        legs = {}
+
+        def leg(name, keys):
+            before = fleet.settled()
+            got = [None] * len(keys)
+
+            def one(i):
+                got[i] = self.gate_ask(fleet.port, *keys[i])
+
+            threads = [threading.Thread(target=one, args=(i,), daemon=True)
+                       for i in range(len(keys))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=SERVE_JOB_S)
+            after = fleet.settled()
+            if any(g is None or g[0] is None for g in got):
+                raise AssertionError(f"{fleet.name} ({name}): a Request got no Result: {got}")
+            per = {pid: n - before.get(pid, 0) for pid, n in after.items()}
+            legs[name] = dict(keys=keys, results=[list(g[0]) for g in got],
+                              seconds=[g[1] for g in got], launches=per)
+            log(f"  {fleet.name} ({name}) {keys[0][0]!r} [{keys[0][1]}, {keys[0][2]}] x"
+                f"{len(keys)} -> {got[0][0]}; time to Result "
+                f"{', '.join(f'{g[1]:.3f}' for g in got)} s; launches per miner "
+                f"{sorted(per.values())} [{self.card}]")
+            return got
+
+        got_a = leg("a", [GATE_JOB] * GATE_TWINS)
+        if len({g[0] for g in got_a}) != 1:
+            raise AssertionError(f"{fleet.name} (a): the twins got different Results {got_a}")
+        leg("b", [GATE_JOB])
+        rows = self.span_rows(fleet, fleet.spans, data, lo, hi)
+        inner = rows[1:-1] if len(rows) >= 3 else rows[:1]
+        sub = (data, inner[0][0], inner[-1][1])
+        if sub == GATE_JOB:
+            raise AssertionError(f"{fleet.name}: one span covers the whole job: {rows}")
+        leg("c", [sub])
+        legs["c"]["span_rows"] = rows
+        over = (data, lo - GATE_GAP, rows[0][1])
+        leg("d", [over])
+        time.sleep(1.5)  # the server's ticker flushes its trace every second
+        trace, ids = self.gate_trace(fleet)
+        # (a): one submit, the rest coalesced into it, its chunks tile the job.
+        tids = ids.get(GATE_JOB, [])
+        ev = {t: [r["event"] for r in trace if r["trace"] == t and r["span"] == "gw"]
+              for t in tids}
+        primary = [t for t in tids if "submit" in ev[t]]
+        twins = [t for t in tids if "coalesce" in ev[t]]
+        cached = [t for t in tids if "cache_hit" in ev[t]]
+        if len(tids) != GATE_TWINS + 1 or len(primary) != 1 or len(twins) != GATE_TWINS - 1 \
+                or len(cached) != 1:
+            raise AssertionError(f"{fleet.name}: (a)/(b) trace {ev}")
+        chunks_a = self.dispatched(trace, primary[0])
+        if merge_intervals(list(chunks_a)) != [(lo, hi)] or \
+                sum(b - a + 1 for a, b in chunks_a) != hi - lo + 1:
+            raise AssertionError(f"{fleet.name} (a): dispatched {chunks_a} do not tile "
+                                 f"[{lo}, {hi}] without overlap")
+        want_a, best_a = self.replay(search, data, chunks_a)
+        got_launch_a = sum(legs["a"]["launches"].values())
+        legs["a"].update(dispatched=len(chunks_a), one_sweep_launches=want_a,
+                         coalesced=len(twins))
+        log(f"  {fleet.name} (a): {GATE_TWINS} Requests, 1 submit, {len(twins)} coalesced; "
+            f"{len(chunks_a)} chunks tile the job; the miners launched {got_launch_a}, one "
+            f"sweep of those chunks here launches {want_a}")
+        if got_launch_a != want_a or best_a != got_a[0][0]:
+            raise AssertionError(f"{fleet.name} (a): launches {got_launch_a} != one sweep's "
+                                 f"{want_a}, or its fold {best_a} != {got_a[0][0]}")
+        # (b), (c): answered without a chunk, with no launch.
+        for name, key, event in (("b", GATE_JOB, "cache_hit"), ("c", sub, "span_hit")):
+            tid = cached[0] if name == "b" else (ids.get(key) or [None])[0]
+            evs = [r["event"] for r in trace if r["trace"] == tid and r["span"] == "gw"]
+            n = sum(legs[name]["launches"].values())
+            log(f"  {fleet.name} ({name}): {event} in the trace ({evs}); launches {n}")
+            if event not in evs or self.dispatched(trace, tid) or n != 0:
+                raise AssertionError(f"{fleet.name} ({name}): {evs}, launches {n}")
+        want_c = min((h, n) for _a, _b, h, n in inner)
+        if tuple(legs["c"]["results"][0]) != want_c:
+            raise AssertionError(f"{fleet.name} (c): {legs['c']['results']} != the spans' "
+                                 f"fold {want_c}")
+        # (d): only the gap is swept.
+        (tid_d,) = ids.get(over, [None])
+        subm = [r["attrs"] for r in trace if r["trace"] == tid_d
+                and (r["span"], r["event"]) == ("gw", "submit")]
+        chunks_d = self.dispatched(trace, tid_d)
+        gap = (over[1], lo - 1)
+        want_d, _best = self.replay(search, data, chunks_d)
+        got_launch_d = sum(legs["d"]["launches"].values())
+        swept = sum(b - a + 1 for a, b in chunks_d)
+        legs["d"].update(gap=list(gap), dispatched_nonces=swept, gap_launches=want_d,
+                         submit=subm)
+        log(f"  {fleet.name} (d): submit {subm}; {len(chunks_d)} chunks, {swept} nonces, "
+            f"tile the gap {gap} ({lo - over[1]} nonces); the miners launched "
+            f"{got_launch_d}, the gap's chunks here launch {want_d}")
+        if merge_intervals(list(chunks_d)) != [gap] or swept != lo - over[1] or not subm \
+                or subm[0].get("gaps") != 1 or got_launch_d != want_d:
+            raise AssertionError(f"{fleet.name} (d): swept {chunks_d}, submit {subm}, "
+                                 f"launches {got_launch_d} != {want_d}")
+        return legs
+
+    def phase_gateway(self) -> None:
+        """The serving gateway on the card.  Two port servers with
+        ``--gateway --cache=F --spans=F``, one per shell (the blocking one
+        and ``--async-ingress``), each with two plain port miners at their
+        defaults, run legs (a)-(d) (:meth:`gateway_legs`).  The blocking
+        one is then restarted on the same files with ``--prefill`` and
+        small admission knobs, and two fresh miners: (e) the job again,
+        answered from the reloaded cache with no launch; (f) GATE_FLOOD
+        Requests from one host at once: one admitted, the rest throttled,
+        the overflow shed (those clients see the conn closed), while a
+        Request from a second host (127.0.0.2) is served; (g) a span hit
+        makes the job's data hot, and after an idle second the prefill
+        legs launch on the card with no Request live; a real Request
+        preempts them.  Every Result is held to hashlib and to
+        ``sweep_min_hash`` over the same range on the card; the gateway's
+        counters are read from each server's fleet log."""
+        import shutil
+        import tempfile
+
+        from bitcoin_miner_tpu_torch.apps import miner
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+
+        deadline = time.monotonic() + GATE_PHASE_S
+        work = tempfile.mkdtemp(prefix="gateway-")
+        keep = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build", "gateway")
+        fleets, report, held = [], {"card": self.card}, []
+        search = miner.make_async_search("cuda")
+
+        def gateway_fleet(name, extra=(), files=None):
+            files = files or (os.path.join(work, f"{name}.cache.json"),
+                              os.path.join(work, f"{name}.spans.json"))
+            f = GateFleet(work, name, deadline, [
+                "--gateway", f"--cache={files[0]}", f"--spans={files[1]}",
+                "--fleet-log=fleet.jsonl", *extra])
+            f.cache, f.spans = files
+            fleets.append(f)
+            return f
+
+        def counters(fleet, want):
+            """The server's ``gateway.*`` counters; ``want`` maps a name to
+            its value, or to a predicate of it."""
+            c = fleet.last_state()["counters"]
+            got = {k: c.get(f"gateway.{k}", 0) for k in want}
+            log(f"  {fleet.name}: gateway counters {got}")
+            for k, v in want.items():
+                if not (v(got[k]) if callable(v) else got[k] == v):
+                    raise AssertionError(f"{fleet.name}: gateway.{k} = {got[k]}")
+            return {k: c[k] for k in sorted(c) if k.startswith("gateway.")}
+
+        try:
+            s1 = gateway_fleet("blocking")
+            s3 = gateway_fleet("async", ["--async-ingress"])
+            for f in (s1, s3):  # both fleets' start-ups overlap
+                for i in range(2):
+                    f.miners.append((f._spawn(f"miner{i}", [
+                        "-m", "bitcoin_miner_tpu_torch.apps.miner", f"127.0.0.1:{f.port}"]),
+                        None))
+            for f in (s1, s3):
+                f.wait_for(r"miner (\d+) joined", 2, SERVE_JOIN_S)
+            # Legs (a)-(d) on the blocking shell, then on the async one.
+            want = dict(coalesced=GATE_TWINS - 1, fanout=GATE_TWINS - 1, cache_hits=1,
+                        span_hits=1, span_partial=1, completed=2)
+            for f in (s1, s3):
+                legs = self.gateway_legs(f, search)
+                report[f.name] = dict(legs=legs, counters=counters(f, want))
+                held += [(f.name, k, r) for lg in legs.values()
+                         for k, r in zip(lg["keys"], lg["results"])]
+                f.stop()
+            if report["async"]["legs"]["a"]["results"] != report["blocking"]["legs"]["a"][
+                    "results"]:
+                raise AssertionError("the async shell's (a) Results differ")
+            s1.stopped.join(timeout=60)  # its final flush is on disk
+            # (e) the restart on the same files, with prefill and admission.
+            s2 = gateway_fleet("restarted", [f"--prefill={GATE_PREFILL}", *GATE_ADMISSION],
+                               files=(s1.cache, s1.spans))
+            s2.start_port_miners(2)
+            base = s2.settled()
+            got_e, dt_e = self.gate_ask(s2.port, *GATE_JOB)
+            n_e = sum(s2.settled().values()) - sum(base.values())
+            log(f"  restarted (e): {GATE_JOB} -> {got_e} in {dt_e:.3f} s from the reloaded "
+                f"cache; launches {n_e} [{self.card}]")
+            if got_e is None or n_e != 0 or list(got_e) != \
+                    report["blocking"]["legs"]["a"]["results"][0]:
+                raise AssertionError(f"restarted (e): {got_e}, launches {n_e}")
+            held.append(("restarted", GATE_JOB, list(got_e)))
+            # (f) one host's flood, then a second host's Request.
+            flood = [(f"flood-{i}", 0, GATE_FLOOD_SIZE - 1) for i in range(GATE_FLOOD)]
+            fgot = {}
+            threads = [threading.Thread(
+                target=lambda i=i: fgot.__setitem__(i, self.gate_ask(s2.port, *flood[i],
+                                                                      timeout=90)),
+                daemon=True) for i in range(GATE_FLOOD)]
+            for t in threads:
+                t.start()
+            s2.wait_for(r"request from \d+: data='flood-", GATE_FLOOD, 30)
+            got_q, dt_q = self.gate_ask(s2.port, "quiet", 0, GATE_FLOOD_SIZE - 1, "127.0.0.2")
+            for t in threads:
+                t.join(timeout=120)
+            served = sorted(i for i, (g, _dt) in fgot.items() if g is not None)
+            shed = sorted(i for i, (g, _dt) in fgot.items() if g is None)
+            log(f"  restarted (f): {GATE_FLOOD} flood Requests from 127.0.0.1 "
+                f"({' '.join(GATE_ADMISSION)}): served {served} after "
+                f"{[round(fgot[i][1], 3) for i in served]} s, shed {shed} (conn closed, seen "
+                f"after {[round(fgot[i][1], 3) for i in shed]} s); the second host's Request "
+                f"-> {got_q} in {dt_q:.3f} s [{self.card}]")
+            if got_q is None or len(fgot) != GATE_FLOOD or len(served) != 3 or len(shed) != 3:
+                raise AssertionError(f"restarted (f): flood {fgot}, second host {got_q}")
+            held += [("restarted", flood[i], list(fgot[i][0])) for i in served]
+            held.append(("restarted", ("quiet", 0, GATE_FLOOD_SIZE - 1), list(got_q)))
+            # (g) a span hit turns the data hot (the last solved span: no
+            # earlier Request asked for it, so the cache cannot answer);
+            # an idle second later the prefill legs launch with no Request
+            # live; a Request preempts them.
+            last = report["blocking"]["legs"]["c"]["span_rows"][-1]
+            got_h, _dt = self.gate_ask(s2.port, GATE_JOB[0], last[0], last[1])
+            if got_h is None or list(got_h) != last[2:]:
+                raise AssertionError(f"restarted (g): span hit {got_h} != {last}")
+            held.append(("restarted", (GATE_JOB[0], last[0], last[1]), list(got_h)))
+            base, t0 = sum(s2.live_launches().values()), time.monotonic()
+            while sum(s2.live_launches().values()) == base:
+                if time.monotonic() - t0 > 15:
+                    raise AssertionError("restarted (g): no prefill launch within 15 s")
+                time.sleep(0.02)
+            t_pre = time.monotonic() - t0
+            got_p, dt_p = self.gate_ask(s2.port, *GATE_PREEMPT, "127.0.0.2")
+            if got_p is None:
+                raise AssertionError("restarted (g): the preempting Request got no Result")
+            held.append(("restarted", GATE_PREEMPT, list(got_p)))
+            c2 = counters(s2, dict(cache_hits=1, span_hits=1, shed=3, throttled=5,
+                                   prefill_jobs=lambda v: v >= 1,
+                                   prefill_preempted=lambda v: v >= 1))
+            time.sleep(0.5)
+            trace, _ids = self.gate_trace(s2)
+            pre = [r for r in trace if (r["span"], r["event"]) == ("gw", "prefill")]
+            pre_chunks = [c for r in pre for c in self.dispatched(trace, r["trace"])]
+            log(f"  restarted (g): prefill launched {t_pre:.3f} s after the span hit; "
+                f"{len(pre)} prefill jobs {[(r['attrs']['lower'], r['attrs']['upper']) for r in pre]}, "
+                f"{len(pre_chunks)} chunks dispatched; the preempting Request -> {got_p} in "
+                f"{dt_p:.3f} s [{self.card}]")
+            if not pre or not pre_chunks:
+                raise AssertionError("restarted (g): no prefill job or chunk in the trace")
+            s2.stop()
+            report["restarted"] = dict(
+                e=dict(result=list(got_e), seconds=dt_e, launches=n_e),
+                f=dict(served=served, shed=shed, seconds={i: fgot[i][1] for i in fgot},
+                       second_host=dict(result=list(got_q), seconds=dt_q),
+                       admission=GATE_ADMISSION),
+                g=dict(prefill_after_s=t_pre, prefill_jobs=len(pre),
+                       prefill_chunks=len(pre_chunks), preempt=dict(result=list(got_p),
+                                                                   seconds=dt_p)),
+                counters=c2)
+            for f in fleets:
+                f.stopped.join(timeout=60)
+            # Every Result, held on the card with every fleet idle (each
+            # distinct one once: the twins and both shells agree).
+            distinct = {(k, tuple(r)): name for name, k, r in held}
+            for ((data, lo, hi), (h, n)), name in distinct.items():
+                if h != hash_nonce(data, n) or not lo <= n <= hi:
+                    raise AssertionError(f"{name}: bad Result ({h}, {n}) for {data!r}")
+                r = sweep_min_hash(data, lo, hi, device=self.dev)
+                if (h, n) != (r.hash, r.nonce):
+                    raise AssertionError(f"{name}: {data!r} [{lo}, {hi}]: served ({h}, {n}) "
+                                         f"!= sweep_min_hash on the card {(r.hash, r.nonce)}")
+            log(f"  {len(held)} Results ({len(distinct)} distinct) equal hashlib and "
+                f"sweep_min_hash on the card")
+            launched = {f.name: f.launches_by_miner for f in fleets}
+            log(f"  launches per drained miner {launched}")
+            if not all(n > 0 for f in fleets for n in f.launches_by_miner):
+                raise AssertionError("a gateway miner never launched the kernel")
+            self.k_stats["launches_gateway"] = sum(sum(v) for v in launched.values())
+            report["launches"] = launched
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the gateway phase ran past {GATE_PHASE_S} s")
+            self.gate = report
+        finally:
+            search.close()
+            for f in fleets:
+                f.kill_all()
+            shutil.rmtree(keep, ignore_errors=True)
+            shutil.copytree(work, keep, dirs_exist_ok=True)
+            shutil.rmtree(work, ignore_errors=True)
+
+    def phase_autoscale(self) -> None:
+        """The autoscaler on the card.  A port server with ``--gateway``,
+        its hub (``--telemetry-port``, ``--fleet-log``), ``--slo=AS_SLO``
+        (a Request over 0.5 s is bad) and ``--autoscale=AS_SPEC``, in an
+        environment with ``BMT_MINER_THROTTLE_NPS=AS_PACE_NPS``; one plain
+        port miner, paced by it, and AS_STREAMS clients sending
+        AS_REQUEST-nonce Requests in turn.  One paced miner misses the
+        objective, the request alert fires, and the controller spawns
+        workers — ``python -m bitcoin_miner_tpu_torch.apps.miner``, paced
+        by the inherited variable, on the card — until every miner has
+        answered chunks; then the load stops, the alert resolves, and the
+        controller drains the newest worker.  Checks: each spawned
+        worker's argv names the port's miner with ``--backend auto``,
+        each spawned worker launched the min-hash kernel, the drained one
+        exited 0 with ``drained`` in its trace, every Result equals hashlib
+        and ``sweep_min_hash`` on the card.  Prints the controller's
+        timeline from its trace events and its ``status()`` in the fleet
+        log."""
+        import shutil
+        import socket
+        import tempfile
+
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+
+        deadline = time.monotonic() + AS_PHASE_S
+        work = tempfile.mkdtemp(prefix="autoscale-")
+        keep = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build", "autoscale")
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            sock.bind(("127.0.0.1", 0))
+            tport = sock.getsockname()[1]
+        fleet = None
+        results, stop = [], threading.Event()
+        try:
+            fleet = GateFleet(work, "autoscale", deadline, [
+                "--gateway", f"--telemetry-port={tport}", "--fleet-log=fleet.jsonl",
+                f"--slo={AS_SLO}", f"--autoscale={AS_SPEC}"],
+                env={"BMT_MINER_THROTTLE_NPS": str(AS_PACE_NPS)})
+            fleet.start_port_miners(1, ["--telemetry", f"127.0.0.1:{tport}",
+                                        "--source", "paced-0"])
+            t_load = time.monotonic()
+
+            def stream(k):
+                i = 0
+                while not stop.is_set() and time.monotonic() < deadline:
+                    lo = (i * AS_STREAMS + k) * AS_REQUEST
+                    got, dt = self.gate_ask(fleet.port, "autoscale", lo, lo + AS_REQUEST - 1)
+                    results.append((lo, lo + AS_REQUEST - 1, got, dt,
+                                    time.monotonic() - t_load))
+                    i += 1
+
+            threads = [threading.Thread(target=stream, args=(k,), daemon=True)
+                       for k in range(AS_STREAMS)]
+            for t in threads:
+                t.start()
+
+            def answered():
+                """Distinct miner conns that answered a chunk so far."""
+                return {r["attrs"]["miner"] for r in fleet.trace_events()
+                        if (r["span"], r["event"]) == ("sched", "chunk_result")}
+
+            # Load until two workers are spawned and every miner answered.
+            while True:
+                spawned = re.findall(r"autoscale spawned worker \d+ \(pid (\d+)\)",
+                                     fleet.read("log.txt"))
+                if len(spawned) >= 2 and len(answered()) >= 3:
+                    break
+                if fleet.server.poll() is not None or time.monotonic() > deadline - 60:
+                    raise AssertionError(f"autoscale: spawned {spawned}, answered by "
+                                         f"{answered()} when the load had to stop")
+                time.sleep(0.2)
+            t_stop = time.monotonic() - t_load
+            stop.set()
+            for t in threads:
+                t.join(timeout=SERVE_JOB_S)
+            log(f"  load stopped at {t_stop:.1f} s: {len(results)} Requests, spawned pids "
+                f"{spawned}, chunks answered by {len(answered())} miners")
+            # Quiet: the controller drains the newest worker.
+            m = fleet.wait_for(r"autoscale draining worker pid (\d+)", 1,
+                               max(1.0, deadline - time.monotonic()))
+            drained = int(m)
+            t_drain = time.monotonic() - t_load
+            while drained not in fleet.reports():
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"autoscale: worker {drained} never exited")
+                time.sleep(0.1)
+            t_exit = time.monotonic() - t_load
+            fleet.stop()  # the paced miner; the server drains the rest on its way out
+            fleet.stopped.join(timeout=90)
+            reports = fleet.reports()
+            workers = {int(p): reports.get(int(p)) for p in spawned}
+            for pid, rep in workers.items():
+                log(f"  spawned worker pid {pid}: argv {rep and rep['argv'][1:]}, launches "
+                    f"{rep and rep['launches']}, exit {rep and rep['exit']}, miner events "
+                    f"{rep and rep['miner_events']}")
+                if rep is None or rep["argv"][1:5] != [
+                        "-m", "bitcoin_miner_tpu_torch.apps.miner",
+                        f"127.0.0.1:{fleet.port}", "--backend"] or rep["argv"][5] != "auto" \
+                        or rep["exit"] != 0:
+                    raise AssertionError(f"autoscale: worker {pid}: {rep}")
+            # The load ran until every miner had answered a chunk, so each
+            # spawned worker (the scale-up's second one among them) must
+            # have launched the kernel on the card.
+            idle = [pid for pid, rep in workers.items() if rep["launches"] <= 0]
+            if idle:
+                raise AssertionError(f"autoscale: spawned workers {idle} answered chunks "
+                                     f"without launching the kernel")
+            if "drained" not in workers[drained]["miner_events"]:
+                raise AssertionError(f"autoscale: worker {drained} did not drain cleanly")
+            # The controller's timeline: its trace events and the statuses it
+            # published through the hub.
+            rows = fleet.trace_events()
+            t0 = rows[0]["t"] if rows else 0.0
+            timeline = [(round(r["t"] - t0, 3), r["span"], r["event"], r.get("attrs"))
+                        for r in rows if r["span"] == "autoscale"
+                        or (r["span"], r["event"]) in (("slo", "alert_fired"),
+                                                       ("slo", "alert_resolved"))]
+            for row in timeline:
+                log(f"  timeline {row}")
+            statuses = []
+            for line in fleet.read("fleet.jsonl").splitlines():
+                try:
+                    st = json.loads(line).get("autoscale")
+                except ValueError:
+                    continue
+                if st and (not statuses or st != statuses[-1]):
+                    statuses.append(st)
+            for st in statuses:
+                log(f"  status() {st}")
+            kinds = [a for _t, span, ev, a in timeline if span == "autoscale" and ev == "action"]
+            if [a["kind"] for a in kinds][:3] != ["spawn", "spawn", "drain"]:
+                raise AssertionError(f"autoscale: actions {kinds}")
+            # Every Result exact, held on the card with the fleet gone.
+            for lo, hi, got, dt, _at in results:
+                if got is None:
+                    raise AssertionError(f"autoscale: [{lo}, {hi}] got no Result")
+                h, n = got
+                r = sweep_min_hash("autoscale", lo, hi, device=self.dev)
+                if h != hash_nonce("autoscale", n) or (h, n) != (r.hash, r.nonce):
+                    raise AssertionError(f"autoscale: [{lo}, {hi}] served {got} != "
+                                         f"{(r.hash, r.nonce)}")
+            log(f"  {len(results)} Results equal hashlib and sweep_min_hash on the card; "
+                f"seconds to Result {[round(dt, 3) for *_x, dt, _a in results]} [{self.card}]")
+            launched = {pid: rep["launches"] for pid, rep in reports.items()}
+            self.k_stats["launches_autoscale"] = sum(launched.values())
+            self.autoscale = dict(
+                spec=AS_SPEC, slo=AS_SLO, pace_nps=AS_PACE_NPS, request=AS_REQUEST,
+                streams=AS_STREAMS, load_stopped_s=t_stop, drain_s=t_drain,
+                drained_exit_s=t_exit, drained_pid=drained,
+                workers={pid: dict(launches=rep["launches"], exit=rep["exit"],
+                                   miner_events=rep["miner_events"])
+                         for pid, rep in workers.items()},
+                launches=launched, requests=[[lo, dt, at] for lo, _h, _g, dt, at in results],
+                timeline=timeline, statuses=statuses, card=self.card)
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the autoscale phase ran past {AS_PHASE_S} s")
+        finally:
+            stop.set()
+            if fleet is not None:
+                fleet.kill_all()
+            shutil.rmtree(keep, ignore_errors=True)
+            shutil.copytree(work, keep, dirs_exist_ok=True)
+            shutil.rmtree(work, ignore_errors=True)
+
     def pair_leg(self, armed: bool, hub_port: int):
         """One leg of the overhead pair: a port miner's serve loop
         (``run_miner`` over ``make_async_search("cuda")``, as ``main``
@@ -2317,6 +3113,8 @@ class Smoke:
             ("multihost", self.phase_multihost),
             ("serving path", self.phase_serving),
             ("telemetry path", self.phase_telemetry),
+            ("gateway path", self.phase_gateway),
+            ("autoscale path", self.phase_autoscale),
             ("hot path", self.phase_hot_path),
             ("numbers", self.phase_numbers),
         ]
@@ -2366,7 +3164,8 @@ class Smoke:
                 "bound_ms_two_blocks", "bound_ms_two_blocks_all_k_digits",
                 "lane_ops_two_blocks", "ms_56_chars", "ms_full_fold_56_chars",
                 "plain_ms_56_chars", "bound_ms_56_chars", "lane_ops_56_chars",
-                "launches_serving", "sm_clock_mhz", "sass", "ptxas")},
+                "launches_serving", "launches_gateway", "launches_autoscale",
+                "sm_clock_mhz", "sass", "ptxas")},
         }, {
             "name": "sha256_minhash_factored",
             "route": "cuda",
@@ -2402,7 +3201,8 @@ class Smoke:
                 "sass", "ptxas")},
         }], "launches_preimage_path": s["launches_preimage"], "native": self.native,
             "mesh_path": self.mesh, "multihost_ranks": self.multihost,
-            "serving_path": self.serving, "telemetry_path": self.tele, "hot_path": self.hot}
+            "serving_path": self.serving, "telemetry_path": self.tele,
+            "gateway_path": self.gate, "autoscale_path": self.autoscale, "hot_path": self.hot}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch

@@ -1,10 +1,13 @@
 """The port imports neither JAX nor the JAX package.
 
 Checked on the source (AST), not on ``sys.modules``: the test process itself
-has JAX loaded already.
+has JAX loaded already.  No string constant of the port names a module of
+the JAX package either: a ``python -m`` argv or a logger name is a string,
+which an import check cannot see.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -49,3 +52,34 @@ def test_checker_catches_forbidden_names():
     assert not _forbidden("bitcoin_miner_tpu_torch")
     assert not _forbidden("bitcoin_miner_tpu_torch.ops")
     assert not _forbidden("jaxlib_free")
+
+
+# A dotted name under the JAX package ("bitcoin_miner_tpu.apps.miner"), or
+# the package itself as a whole string; "bitcoin_miner_tpu_torch..." and a
+# file path ("bitcoin_miner_tpu/ops/...") do not match.
+_REF_MODULE = re.compile(r"(?<![A-Za-z0-9_])bitcoin_miner_tpu(\.[A-Za-z_]|$)")
+
+
+def _ref_module_strings(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            for line in node.value.splitlines() or [""]:
+                if _REF_MODULE.search(line.strip()):
+                    yield node.lineno, line.strip()
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_string_names_a_reference_module(path):
+    bad = list(_ref_module_strings(path))
+    assert not bad, f"{path.relative_to(ROOT)} names a JAX-package module: {bad}"
+
+
+def test_string_checker_catches_reference_modules():
+    for text in ("bitcoin_miner_tpu.apps.miner", "bitcoin_miner_tpu", "x bitcoin_miner_tpu.autoscale"):
+        assert _REF_MODULE.search(text), text
+    for text in ("bitcoin_miner_tpu_torch.apps.miner", "bitcoin_miner_tpu_torch",
+                 "bitcoin_miner_tpu/ops/pallas_sha256.py:93", "the JAX package's miner"):
+        assert not _REF_MODULE.search(text), text

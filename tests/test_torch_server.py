@@ -9,11 +9,13 @@
   staged by the other's ``main``, in both directions; a file of another
   workload stages nothing, in both; a resubmitted job resumes from it.
 - The CLI contracts: each package's ``server.main`` and ``client.main``
-  print the same stdout for the same argv, every server flag whose
-  module is not ported yet stops ``main`` before it binds a port, and every
-  spelling of the fleet metrics plane's flags arms a hub with the sink it
-  names (a bad ``--slo=`` value or a busy telemetry port stops ``main``
-  with one line before the serving port binds).
+  print the same stdout for the same argv, the chaos layer's switch (not
+  ported yet) stops ``main`` before it binds a port, every spelling of the
+  fleet metrics plane's flags arms a hub with the sink it names (a bad
+  ``--slo=`` value or a busy telemetry port stops ``main`` with one line
+  before the serving port binds), every spelling of the gateway's and the
+  autoscaler's flags arms a ``Gateway`` or the controller in both shells,
+  and a bad number or autoscale spec stops ``main`` before it binds.
 - The three CLIs as processes: a job runs from the port client through the
   port server to a port miner with no module of JAX or of the JAX package
   loaded in any of them.
@@ -219,6 +221,11 @@ SERVER_ARGV = [
     ["server", "0", "--workload=nope"],
     ["server", "0", "--static-chunks=x"],
     ["server", "0", "--chunk-target-s=fast", "--async-ingress"],
+    ["server", "0", "--prefill=x"],
+    ["server", "0", "--gateway", "--rate=x"],
+    ["server", "0", "--max-queued=1.5", "--async-ingress"],
+    ["server", "0", "--autoscale=nope"],
+    ["server", "0", "--autoscale=min=2,max=1", "--async-ingress"],
 ]
 CLIENT_ARGV = [
     ["client"],
@@ -254,13 +261,11 @@ def test_client_cli_matches_reference(argv):
     assert outs[1]
 
 
-UNPORTED_FLAGS = ["--gateway", "--cache=c.json", "--spans=s.json", "--rate=5", "--burst=3",
-                  "--max-queued=9", "--prefill=100", "--autoscale", "--autoscale=x"]
-UNPORTED_ENV = ["BMT_PREFILL", "BMT_AUTOSCALE", "BMT_CHAOS_SCENARIO"]
+UNPORTED_ENV = ["BMT_CHAOS_SCENARIO"]
 
 
 @pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
-@pytest.mark.parametrize("spelling", UNPORTED_FLAGS + UNPORTED_ENV)
+@pytest.mark.parametrize("spelling", UNPORTED_ENV)
 def test_unported_server_flag_fails_before_binding(spelling, shell, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
 
@@ -398,6 +403,185 @@ def test_fleet_plane_flag_fails_before_binding(spelling, line, shell, tmp_path, 
         assert "in use" in text, text
     else:
         assert text == line + "\n"
+
+
+# ------------------------------------------------------- gateway and autoscale
+
+
+class _Handed:
+    """``serve`` / ``AsyncIngress`` stand-ins: each records the engine
+    ``main`` hands its shell (the scheduler, the lock, the hub)."""
+
+    def __init__(self, monkeypatch):
+        self.kw = []
+        handed = self.kw
+
+        class FakeIngress:
+            def __init__(self, port, **kw):
+                handed.append({**kw, "port": 6061})
+                self.port, self._thread, self.error = 6061, None, None
+
+            def start(self):
+                return self
+
+            def close(self):
+                pass
+
+        monkeypatch.setattr(server, "serve",
+                            lambda srv, **kw: handed.append({**kw, "port": srv.port}))
+        monkeypatch.setattr(server, "AsyncIngress", FakeIngress)
+
+
+def _main(argv, shell):
+    with redirect_stdout(io.StringIO()) as out:
+        assert server.main(["server", "0", *shell, *argv]) == 0
+    assert "Traceback" not in out.getvalue()
+    return out.getvalue()
+
+
+# (spelling, the Gateway's knobs it sets): ("cache"/"spans", file name) or
+# (attribute, value).
+GATEWAY_SPELLINGS = [
+    ("--gateway", None), ("--cache=c.json", ("cache", "c.json")),
+    ("--spans=s.json", ("spans", "s.json")), ("--rate=2.5", ("rate", 2.5)),
+    ("--rate=0", ("rate", None)), ("--burst=3", ("burst", 3.0)),
+    ("--max-queued=9", ("max_queued", 9)), ("--prefill=100", ("prefill", 100)),
+    ("BMT_PREFILL=100", ("prefill", 100)),
+]
+
+
+@pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
+@pytest.mark.parametrize("spelling,knob", GATEWAY_SPELLINGS,
+                         ids=[s for s, _ in GATEWAY_SPELLINGS])
+def test_gateway_flag_arms_gateway(spelling, knob, shell, tmp_path, monkeypatch):
+    """Every spelling hands the shell a ``Gateway`` over the port's
+    scheduler with the reference's defaults and the knob it names."""
+    from bitcoin_miner_tpu_torch.gateway import Gateway
+
+    monkeypatch.chdir(tmp_path)
+    handed = _Handed(monkeypatch)
+    argv = []
+    _apply_spelling(spelling, argv, monkeypatch)
+    _main(argv, shell)
+    (kw,) = handed.kw
+    gw = kw["scheduler"]
+    assert isinstance(gw, Gateway) and isinstance(gw.sched, Scheduler)
+    assert kw["lock"] is None  # no autoscaler: the plane's own lock
+    want = dict(rate=5.0, burst=10.0, max_queued=256, prefill=0, prefill_idle_s=1.0,
+                cache=None, spans=None)
+    if knob is not None:
+        want[knob[0]] = knob[1]
+    got = {k: getattr(gw, k) for k in want if k not in ("cache", "spans")}
+    got.update(cache=gw.cache.path, spans=gw.spans.path)
+    assert got == want
+    assert gw.sched.record_spans and gw.cache.workload_name == "sha256d"
+
+
+class _FakeWorkers:
+    made = []
+
+    def __init__(self, port, **kw):
+        self.port, self.kw, self.stopped = port, kw, False
+        _FakeWorkers.made.append(self)
+
+    def live(self):
+        return 0
+
+    def stop_all(self):
+        self.stopped = True
+
+
+class _FakePump:
+    made = []
+
+    def __init__(self, controller, interval=1.0):
+        self.controller, self.interval, self.stopped = controller, interval, False
+        _FakePump.made.append(self)
+
+    def start(self):
+        return self
+
+    def stop(self):
+        self.stopped = True
+
+
+# (spelling, extra argv, the AutoscaleConfig fields and driver it must carry)
+AUTOSCALE_SPELLINGS = [
+    ("--autoscale", [], dict(max_workers=4), dict(interval=1.0, backend="auto")),
+    ("--autoscale=min=1,max=2,hold=2,interval=0.5", [], dict(max_workers=2, hold_ticks=2),
+     dict(interval=0.5, backend="auto")),
+    ("BMT_AUTOSCALE=1", [], dict(max_workers=4), dict(interval=1.0, backend="auto")),
+    ("BMT_AUTOSCALE=max=3,backend=cpu", [], dict(max_workers=3),
+     dict(interval=1.0, backend="cpu")),
+    ("--autoscale=weights=gold:4", ["--gateway", "--slo"],
+     dict(overload_weights={"gold": 4.0}), dict(interval=1.0, backend="auto")),
+]
+
+
+@pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
+@pytest.mark.parametrize("spelling,extra,cfg,driver", AUTOSCALE_SPELLINGS,
+                         ids=[s for s, *_ in AUTOSCALE_SPELLINGS])
+def test_autoscale_flag_arms_controller(spelling, extra, cfg, driver, shell, tmp_path,
+                                        monkeypatch):
+    """Every spelling arms one controller against the live serving port,
+    with the spec's policy, its pump beat and its workers' backend; the
+    event lock it shares with the shell; weights only with the gateway
+    on; its status on the hub; the pump stopped and the workers stopped
+    when ``main`` returns."""
+    from bitcoin_miner_tpu_torch import autoscale as port_autoscale
+
+    monkeypatch.chdir(tmp_path)
+    handed = _Handed(monkeypatch)
+    _FakeWorkers.made, _FakePump.made = [], []
+    monkeypatch.setattr(port_autoscale, "ProcessActuator", _FakeWorkers)
+    monkeypatch.setattr(port_autoscale, "ControllerPump", _FakePump)
+    argv = list(extra)
+    _apply_spelling(spelling, argv, monkeypatch)
+    _main(argv, shell)
+    (kw,) = handed.kw
+    (workers,), (pump,) = _FakeWorkers.made, _FakePump.made
+    ctl = pump.controller
+    assert isinstance(ctl, port_autoscale.AutoscaleController) and ctl._workers is workers
+    assert workers.port == kw["port"] > 0  # the live serving port
+    assert workers.kw == dict(backend=driver["backend"], telemetry=None)
+    assert pump.interval == driver["interval"] and pump.stopped and workers.stopped
+    assert {k: getattr(ctl.cfg, k) for k in cfg} == cfg
+    assert kw["lock"] is not None
+    if "--gateway" in extra:
+        assert isinstance(ctl._weights, port_autoscale.GatewayWeightActuator)
+        assert ctl._weights._lock is kw["lock"] and ctl._weights._gw is kw["scheduler"]
+        hub = kw["telemetry"]
+        assert hub._extras["autoscale"] == ctl.status
+        assert ctl._burn() is None  # the hub has published no state yet
+    else:
+        assert ctl._weights is None and ctl._burn() is None
+
+
+# (spelling, the one line main prints): the reference's messages.
+GW_REFUSALS = [
+    ("--rate=x", "--rate=x is not a number."),
+    ("--burst=fast", "--burst=fast is not a number."),
+    ("--max-queued=1.5", "--max-queued=1.5 is not a number."),
+    ("--autoscale=bogus", "autoscale spec needs key=value pairs, got 'bogus'"),
+    ("--autoscale=warp=9", "bad autoscale spec 'warp=9': unknown autoscale key 'warp'"),
+    ("BMT_AUTOSCALE=min=3,max=1", "autoscale needs 0 <= min <= max, got min=3 max=1"),
+]
+
+
+@pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
+@pytest.mark.parametrize("spelling,line", GW_REFUSALS, ids=[s for s, _ in GW_REFUSALS])
+def test_gateway_or_autoscale_refusal_before_binding(spelling, line, shell, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.chdir(tmp_path)
+
+    def bound(*_a, **_k):
+        raise AssertionError("the server bound a port")
+
+    monkeypatch.setattr(server.lsp, "Server", bound)
+    monkeypatch.setattr(server, "AsyncIngress", bound)
+    argv = []
+    _apply_spelling(spelling, argv, monkeypatch)
+    assert _main(argv, shell) == line + "\n"
 
 
 # ------------------------------------------------------------- the three CLIs

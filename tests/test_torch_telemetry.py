@@ -53,7 +53,8 @@ PKGS = {"port": (metrics, fleetview, slo, telemetry, trace),
 
 _REGISTRY_LINE = re.compile(r"^#:\s{2,}([a-z][a-z0-9_]*(?:\.[a-z0-9_]+)+)\s+\S")
 _METRIC_OK = re.compile(r"metric-ok:\s*([A-Za-z0-9_.*,\s]+)")
-_GAUGES = ("gauge.", "fleet.", "fed.conns_live", "gw.conns_live", "kernel.thresh_staleness")
+_GAUGES = ("gauge.", "fleet.", "fed.conns_live", "gw.conns_live", "kernel.thresh_staleness",
+           "autoscale.target_workers")
 _KIND = {"inc": "counter", "observe": "hist", "set_gauge": "gauge"}
 
 
@@ -129,6 +130,15 @@ def test_slice_names_are_registered():
         "slo.alerts_fired", "slo.alerts_resolved",
     }
     assert slice_names <= PORT_REGISTRY
+
+
+def test_gateway_and_autoscale_names_are_registered():
+    """Every ``gateway.*`` and ``autoscale.*`` name of the reference's
+    registry, and the two histograms the gateway feeds, in the port's."""
+    names = {n for n in REF_REGISTRY if n.startswith(("gateway.", "autoscale."))}
+    assert len(names) == 23
+    assert names | {"hist.request_s", "hist.admission_wait_s"} <= PORT_REGISTRY
+    assert _kind("autoscale.target_workers") == "gauge"
 
 
 # --------------------------------------------------------------------------
