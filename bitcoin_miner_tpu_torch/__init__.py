@@ -7,12 +7,14 @@ modules it needs).
 
 Layer map of the ported slice:
 
-  L1  lspnet/    asyncio-UDP endpoints (no fault injection)
+  L1  lspnet/    asyncio-UDP endpoints with the fault knobs and the seeded
+                 chaos layer (NetSim)
   L2  lsp/       the LSP reliable, ordered transport
   L3  bitcoin/   application wire protocol + hashlib oracle
       ops/       SHA-256 host layout, the min-hash sweep, the Hopper kernel
                  (csrc/sha256_minhash.cu) and its plain PyTorch version
-  L4  apps/      the server (scheduler), miner and client binaries
+  L4  apps/      the server (scheduler), miner and client binaries, the
+                 echo runners and the in-process chaos drill
       utils/     device probe, retry policy, metrics, tracing, the race
                  sanitizer, interval algebra, WFQ, atomic persistence
 

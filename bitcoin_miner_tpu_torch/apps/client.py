@@ -5,8 +5,8 @@ frozen contract): ``client <hostport> <message> <maxNonce>`` prints exactly
 ``Result <hash> <nonce>`` on success or ``Disconnected`` if the server
 connection is lost before the result arrives.
 
-The port's copy of the reference package's ``apps/client.py``; the port's
-LSP has no chaos layer, so ``request_with_retry`` takes no endpoint label.
+The port's copy of the reference package's ``apps/client.py``;
+``request_with_retry(label=)`` names each of its conns to the chaos layer.
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ def request_with_retry(
     backoff_base: float = 0.25,
     backoff_cap: float = 4.0,
     params: Optional["lsp.Params"] = None,
+    label: Optional[str] = None,
     first_client: Optional["lsp.Client"] = None,
     sleep: Optional[Callable[[float], None]] = None,
 ) -> Optional[Tuple[int, int]]:
@@ -91,7 +92,7 @@ def request_with_retry(
             client = first_client
         else:
             try:
-                client = lsp.Client(host, port, params)
+                client = lsp.Client(host, port, params, label=label)
             except (lsp.LspError, OSError):
                 continue  # server unreachable this attempt: back off, retry
         if attempt:

@@ -50,9 +50,11 @@ burn alerts and ``fleet.utilization``, re-weights the gateway's tenants
 when ``weights=`` is given, and publishes its ``status()`` through the
 hub; a bad spec prints one line and returns 0 before binding.  Its
 workers' backend defaults to ``"auto"`` (the cuda rung on the card),
-where the reference's defaults to ``"cpu"``.  Only the chaos layer is not
-ported yet: ``BMT_CHAOS_SCENARIO`` stops ``main`` with ``Invalid server
-configuration: BMT_CHAOS_SCENARIO is not ported yet`` before it binds.
+where the reference's defaults to ``"cpu"``.  So is the chaos layer:
+``BMT_CHAOS_SCENARIO=<name>`` arms one of ``lspnet.standard_scenarios()``
+on this process's endpoints in both shells (``BMT_CHAOS_LOOP=<s>`` replays
+it every ``s`` seconds); an unknown name prints ``unknown
+BMT_CHAOS_SCENARIO '<name>'; ignoring`` on stderr and serves on.
 """
 
 from __future__ import annotations
@@ -642,8 +644,7 @@ class AsyncIngress:
         self.error: Optional[BaseException] = None
         self._closed = False
         self._san = sanitize.enabled()  # captured once, like the sync facades
-        # The port's LSP has no chaos layer: ``label`` only names this
-        # loop to the sanitizer.
+        self._label = label
         self._san_name = f"ingress.loop.{label or id(self)}"
 
     # ------------------------------------------------------------- lifecycle
@@ -692,7 +693,7 @@ class AsyncIngress:
             # construction failure must release the starter too, or
             # start() would block on _started forever.
             self._server = await lsp.AsyncServer.create(
-                self._port_arg, self._params, self._host
+                self._port_arg, self._params, self._host, label=self._label
             )
             bridge = _LoopBridge(self._server, self._loop)
             plane = self._plane = _EventPlane(
@@ -782,11 +783,6 @@ class AsyncIngress:
         if self._server is None:
             return 0
         return self._server.conns_live()
-
-
-#: The environment switch of the chaos layer, which is not ported yet:
-#: ``main`` refuses it before binding.
-_UNPORTED_ENV = ("BMT_CHAOS_SCENARIO",)
 
 
 def _start_hub(tport: Optional[int], fleet_log, prom_path, slo_conf):
@@ -908,7 +904,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     # serving port (env BMT_AUTOSCALE; grammar in
     # autoscale.parse_autoscale_config).
     autoscale_conf = os.environ.get("BMT_AUTOSCALE") or None
-    unported = [name for name in _UNPORTED_ENV if os.environ.get(name)]
     pos = []
     for a in argv[1:]:
         if a.startswith("--checkpoint="):
@@ -977,11 +972,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     except ValueError as e:
         print("Port must be a number:", e)
         return 0
-    if unported:
-        # Never a silent no-op: a flag the operator set must take effect
-        # or stop the server before it binds anything.
-        print(f"Invalid server configuration: {unported[0]} is not ported yet")
-        return 0
     # Parse the autoscale policy up front: a spec typo must fail fast,
     # before anything binds a port or spawns a thread.
     as_cfg = as_driver = None
@@ -1011,6 +1001,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(str(e))
                 return 0
             print("Server listening on port", port)
+        # Degraded-network runs: arm a named seeded scenario in THIS
+        # process — the server's tx shapes both the chunk stream to miners
+        # and the Result stream to clients.
+        scenario = os.environ.get("BMT_CHAOS_SCENARIO")
+        if scenario:
+            from ..lspnet.chaos import CHAOS, standard_scenarios
+
+            library = standard_scenarios()
+            if scenario in library:
+                loop = float(os.environ.get("BMT_CHAOS_LOOP", "0") or 0)
+                CHAOS.run(library[scenario], loop_every=loop or None)
+            else:
+                print(f"unknown BMT_CHAOS_SCENARIO {scenario!r}; ignoring",
+                      file=sys.stderr)
         if trace_path:
             from ..utils.trace import TRACE
 

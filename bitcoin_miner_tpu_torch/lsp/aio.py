@@ -56,12 +56,14 @@ class AsyncClient:
 
     @classmethod
     async def connect(
-        cls, host: str, port: int, params: Optional[Params] = None
+        cls, host: str, port: int, params: Optional[Params] = None,
+        label: Optional[str] = None,
     ) -> "AsyncClient":
         """Handshake: send Connect, resend every epoch, give up after
-        EpochLimit epochs (client_impl.go:105-139; rule 1 of SURVEY §2.2)."""
+        EpochLimit epochs (client_impl.go:105-139; rule 1 of SURVEY §2.2).
+        ``label`` names this endpoint to the chaos layer (lspnet.CHAOS)."""
         params = params or Params()
-        endpoint = await lspnet.create_client_endpoint(host, port)
+        endpoint = await lspnet.create_client_endpoint(host, port, label=label)
         self = cls(endpoint, params)
         # Datagrams from any other source must be ignored (the socket is
         # deliberately unconnected at the OS level — see lspnet.udp).
@@ -220,10 +222,11 @@ class AsyncServer:
 
     @classmethod
     async def create(
-        cls, port: int, params: Optional[Params] = None, host: str = "127.0.0.1"
+        cls, port: int, params: Optional[Params] = None, host: str = "127.0.0.1",
+        label: Optional[str] = None,
     ) -> "AsyncServer":
         params = params or Params()
-        endpoint = await lspnet.create_server_endpoint(host, port)
+        endpoint = await lspnet.create_server_endpoint(host, port, label=label)
         self = cls(endpoint, params)
         self._reader_task = asyncio.ensure_future(self._reader_loop())
         return self

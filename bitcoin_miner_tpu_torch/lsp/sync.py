@@ -137,9 +137,9 @@ class Client:
     ``Client(host, port, params)`` performs the handshake and raises
     CannotEstablishConnectionError after EpochLimit silent epochs.
 
-    ``label`` names the endpoint, as in the reference; the port's LSP has
-    no chaos layer, so here it only names the conn's loop (its thread and
-    its sanitizer resource) and rides the ``lsp connect`` trace event.
+    ``label`` names the endpoint to the chaos layer (``lspnet.CHAOS``), as
+    in the reference; it also names the conn's loop (its thread and its
+    sanitizer resource) and rides the ``lsp connect`` trace event.
     """
 
     def __init__(
@@ -149,7 +149,7 @@ class Client:
         self._lt = _LoopThread(f"lsp-client-{label or f'{host}:{port}'}")
         try:
             self._c: AsyncClient = self._lt.run(
-                AsyncClient.connect(host, port, params)
+                AsyncClient.connect(host, port, params, label=label)
             )
         except BaseException:
             self._lt.stop()
@@ -188,7 +188,8 @@ class Client:
 
 class Server:
     """Blocking LSP server (API parity: lsp/server_api.go:6-39).
-    ``label`` names its loop, as :class:`Client`'s does."""
+    ``label`` names its endpoint to the chaos layer and its loop, as
+    :class:`Client`'s does."""
 
     def __init__(
         self, port: int, params: Optional[Params] = None, host: str = "127.0.0.1",
@@ -197,7 +198,7 @@ class Server:
         self._lt = _LoopThread(f"lsp-server-{label or f':{port}'}")
         try:
             self._s: AsyncServer = self._lt.run(
-                AsyncServer.create(port, params, host)
+                AsyncServer.create(port, params, host, label=label)
             )
         except BaseException:
             self._lt.stop()

@@ -348,6 +348,12 @@ def format_quantiles(h) -> str:
 #:   sweep.ring_refills        chunk descriptors the hot plane uploads (one per dispatch)
 #:   sweep.donated_dispatches  dispatches merged into a hot plane's device carry
 #:   kernel.thresh_staleness   sieve-threshold lag in dispatches (gauge; 1 = device-resident)
+#:   chaos.dropped             packets dropped by the network simulator
+#:   chaos.partitioned         packets blackholed by a directional partition
+#:   chaos.duplicated          packets the simulator emitted twice
+#:   chaos.reordered           packets given the reorder extra delay
+#:   chaos.delayed             packets delivered late (delay/jitter/reorder)
+#:   chaos.throttled           packets queued by a token-bucket bandwidth cap
 #:   telemetry.exports         metric snapshots shipped over the sidecar channel
 #:   telemetry.export_errors   snapshot sends/connects that failed (channel down)
 #:   telemetry.snapshots_merged  snapshots folded into the server's fleet view

@@ -212,9 +212,9 @@ class TelemetryExporter:
         self._interval = interval
         self._params = params
         self._registry = registry if registry is not None else METRICS
-        #: endpoint label — ``tele-<source>`` by default.  The port's LSP
-        #: has no chaos layer: the label only names the conn's loop to
-        #: the sanitizer.
+        #: chaos endpoint label — ``tele-<source>`` by default, so a
+        #: partition of the sidecar (``CHAOS.partition("tele-<source>")``)
+        #: never touches the miner's serving conn.
         self._label = label or f"tele-{source}"
         self._backoff_cap = backoff_cap
         self._stop = threading.Event()

@@ -116,7 +116,18 @@ Phases (any failure ends the run non-zero, with no result line):
    worker launched the min-hash kernel (each observed by a
    ``sitecustomize`` hook, see WORKER_HOOK); every Result exact; the
    controller's timeline from its trace and ``status()``;
-16. hot path — the hot plane's merge kernel against its plain version,
+16. chaos path — the chaos layer on the card: the port's ``run_drill``
+   in this process (three miners on the cuda rung) under each standard
+   scenario (``burst-loss``, ``reorder-dup-delay``,
+   ``flaky-then-partition``, ``miner-partition`` with miner-0 killed at
+   0.8 s) over ``[0, 19,999,999,999]``, each Result held to
+   ``sweep_min_hash`` on the card and hashlib, the kernel's launches, each
+   miner's rung and the scenario's fault counters checked; one job through
+   an ``apps.server`` process armed by ``BMT_CHAOS_SCENARIO`` /
+   ``BMT_CHAOS_LOOP`` with two miners, held as the serving path holds its
+   jobs, the server's chaos counters from its health line; each leg's time
+   to Result, counters and launches;
+17. hot path — the hot plane's merge kernel against its plain version,
    bit-exact, over seeded sequences and random carries with one and two
    shard outputs (ties, sentinels, a vacant carry against h0 == U32_MAX);
    ``sweep_min_hash(hot=True)`` against the per-chunk sweep on 1e9-nonce
@@ -130,7 +141,7 @@ Phases (any failure ends the run non-zero, with no result line):
    (per-chunk, hot) in nonces/s; the merge's device time per launch (a
    CUDA Graph of launches) beside an empty kernel's timed the same way,
    the host's issue time per launch and its plain version's;
-17. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+18. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
@@ -358,6 +369,36 @@ AS_STREAMS = 2
 AS_SLO = "req_p95=0.5,objective=0.9,window=4/8,burn=2,min_events=2,offline=0.5"
 AS_SPEC = "min=1,max=2,hold=2,up_cooldown=4,down_cooldown=6,interval=0.5"
 AS_PHASE_S = 150
+# The chaos phase: each standard scenario drilled in this process through
+# the port's run_drill on the card, (scenario, seed, when miner-0 is killed);
+# three miners, the drill's epochs (100 ms, limit 5, window 5) and a range
+# whose ~1.8 s of kernel time outlasts the longest scenario's last step
+# (1.6 s).  burst-loss's Gilbert–Elliott window is 6 epochs (0.6 s), so
+# its seed is one whose server link enters the bad state on its first
+# packet (found by pumping the seeded NetSim): its loss lands inside that
+# window whatever the timing.  CHAOS_WANT: the counters each scenario's
+# faults must move.  Then one job through a server process armed by
+# BMT_CHAOS_SCENARIO / BMT_CHAOS_LOOP, and the phase's time limit.  The
+# replay period is 1.3 s, not a divisor of the fleet's 2 s LSP epoch: at
+# 1 s every epoch of a conn falls at the same point of the scenario, so a
+# conn whose epochs fall in the 0.2 s server-tx cut never hears a
+# heartbeat or a handshake Ack (a miner fails to join, a client is lost),
+# and one whose epochs fall in the clean part never meets the weather; at
+# 1.3 s a conn's epochs step 0.7 s through the period, visiting every
+# tenth of it in 13 epochs.
+CHAOS_DRILLS = [("burst-loss", 92, None), ("reorder-dup-delay", 202, None),
+                ("flaky-then-partition", 303, None), ("miner-partition", 404, 0.8)]
+CHAOS_MINERS = 3
+CHAOS_MAX_NONCE = 19_999_999_999
+CHAOS_WANT = {"burst-loss": ("chaos.dropped",),
+              "reorder-dup-delay": ("chaos.reordered", "chaos.duplicated", "chaos.delayed"),
+              "flaky-then-partition": ("chaos.dropped", "chaos.partitioned"),
+              "miner-partition": ("chaos.partitioned",)}
+CHAOS_SERVE_ENV = {"BMT_CHAOS_SCENARIO": "flaky-then-partition", "BMT_CHAOS_LOOP": "1.3"}
+CHAOS_SERVE_JOB = ("cmu440", 9_999_999_999)
+CHAOS_DRILL_S = 60
+CHAOS_PHASE_S = 150
+HEALTH_CHAOS = re.compile(r"'chaos\.(\w+)': ([\d.]+)")
 
 
 def log(*a) -> None:
@@ -368,10 +409,11 @@ class ServeFleet:
     """One port server process (``apps.server``) and its miner processes
     (``apps.miner`` through ``SERVE_MINER_CODE``) on loopback, in a working
     directory of their own: the server's ``log.txt`` and its ``--trace``
-    file land there.  Clients are ``apps.client`` processes."""
+    file land there.  Clients are ``apps.client`` processes.  ``env`` adds
+    variables to every process of the fleet."""
 
     def __init__(self, workdir: str, name: str, deadline: float, server_args=(),
-                 miner_args=()) -> None:
+                 miner_args=(), env=None) -> None:
         import socket
 
         self.deadline = deadline  # the phase's, on time.monotonic()
@@ -383,7 +425,7 @@ class ServeFleet:
         with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
             sock.bind(("127.0.0.1", 0))
             self.port = sock.getsockname()[1]
-        self.env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        self.env = {**os.environ, **(env or {}), "PYTHONPATH": os.pathsep.join(
             p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
         self.server = self._spawn("server", ["-m", "bitcoin_miner_tpu_torch.apps.server",
                                              str(self.port), f"--trace={self.trace}",
@@ -873,6 +915,7 @@ class Smoke:
         self.tele = {}  # the telemetry path's checks, dispatch times and pair
         self.gate = {}  # the gateway path's legs, counters and launches
         self.autoscale = {}  # the autoscale path's workers, timeline and launches
+        self.chaos = {}  # the chaos path's drills and served job
 
     # ------------------------------------------------------------ helpers
 
@@ -1682,6 +1725,57 @@ class Smoke:
                 raise AssertionError(f"rank {i}: {ranks[i]}")
         self.multihost = ranks
 
+    def serve_traced(self, fleet, jobs, got):
+        """Per served job: the scheduler's time to Result and the Requests
+        it sent, from the server's trace (job_start's data and upper name
+        the job; its trace id joins the dispatch events)."""
+        rows = fleet.trace_events()
+        ids = {}
+        for r in rows:
+            a = r.get("attrs") or {}
+            if r["event"] == "job_start":
+                ids[(a["data"], a["upper"])] = r["trace"]
+        out = []
+        for (data, hi), (h, n, wall) in zip(jobs, got):
+            tid = ids.get((data[:64], hi))
+            done = [r for r in rows if r["trace"] == tid and r["event"] == "job_done"]
+            sent = [r for r in rows if r["trace"] == tid and r["event"] == "dispatch"]
+            sched_s = (done[0].get("attrs") or {}).get("elapsed") if done else None
+            row = dict(data=data[:12], max_nonce=hi, result=[h, n], client_wall_s=wall,
+                       client_nonces_per_s=(hi + 1) / wall, sched_s=sched_s,
+                       sched_nonces_per_s=(hi + 1) / sched_s if sched_s else None,
+                       requests=len(sent), trace_id=tid)
+            out.append(row)
+            log(f"  {fleet.name}: job {data[:12]!r} [0, {hi}] -> ({h}, {n}); time to "
+                f"Result {wall:.3f} s at the client ({(hi + 1) / wall:,.0f} nonces/s), "
+                f"{sched_s} s in the scheduler; {len(sent)} Requests sent [{self.card}]")
+            if tid is None or not done or not sent:
+                raise AssertionError(f"{fleet.name}: job {data!r} is not in the trace")
+        return out, rows
+
+    def serve_held(self, fleet, jobs, got, wl=None):
+        """Each served Result held to the workload's hash_nonce and to
+        ``min_hash_range`` (a job short enough for hashlib) or this
+        process's ``sweep_min_hash`` over the same range on the card."""
+        from bitcoin_miner_tpu_torch import workloads
+        from bitcoin_miner_tpu_torch.bitcoin.hash import min_hash_range
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+
+        for (data, hi), (h, n, _wall) in zip(jobs, got):
+            w = wl or workloads.get("sha256d")
+            if h != w.hash_nonce(data, n) or not 0 <= n <= hi:
+                raise AssertionError(f"{fleet.name}: bad Result ({h}, {n}) for {data!r}")
+            if hi <= SERVE_JOBS[-1][1]:
+                want = min_hash_range(data, 0, hi) if wl is None else wl.min_range(data, 0, hi)
+                how = "min_hash_range"
+            else:
+                r = sweep_min_hash(data, 0, hi, device=self.dev, workload=wl)
+                want, how = (r.hash, r.nonce), "sweep_min_hash on the card"
+            if (h, n) != want:
+                raise AssertionError(f"{fleet.name}: {data!r} [0, {hi}]: served ({h}, {n}) "
+                                     f"!= {how} {want}")
+            log(f"  {fleet.name}: {data[:12]!r} [0, {hi}] equals {how}: {want}")
+
     def phase_serving(self) -> None:
         """The port's three binaries on the card: ``apps.server`` (the
         blocking shell) with two ``apps.miner`` processes at their defaults
@@ -1703,58 +1797,12 @@ class Smoke:
         import tempfile
 
         from bitcoin_miner_tpu_torch import workloads
-        from bitcoin_miner_tpu_torch.bitcoin.hash import min_hash_range
-        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
 
         deadline = time.monotonic() + SERVE_PHASE_S
         b2 = workloads.get("blake2b64")
         work = tempfile.mkdtemp(prefix="serving-")
         keep = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build", "serving")
         fleets, report = [], {}
-
-        def traced(fleet, jobs, got):
-            """Per job: the scheduler's time to Result and the Requests it
-            sent, from the server's trace (job_start's data and upper name
-            the job; its trace id joins the dispatch events)."""
-            rows = fleet.trace_events()
-            ids = {}
-            for r in rows:
-                a = r.get("attrs") or {}
-                if r["event"] == "job_start":
-                    ids[(a["data"], a["upper"])] = r["trace"]
-            out = []
-            for (data, hi), (h, n, wall) in zip(jobs, got):
-                tid = ids.get((data[:64], hi))
-                done = [r for r in rows if r["trace"] == tid and r["event"] == "job_done"]
-                sent = [r for r in rows if r["trace"] == tid and r["event"] == "dispatch"]
-                sched_s = (done[0].get("attrs") or {}).get("elapsed") if done else None
-                row = dict(data=data[:12], max_nonce=hi, result=[h, n], client_wall_s=wall,
-                           client_nonces_per_s=(hi + 1) / wall, sched_s=sched_s,
-                           sched_nonces_per_s=(hi + 1) / sched_s if sched_s else None,
-                           requests=len(sent), trace_id=tid)
-                out.append(row)
-                log(f"  {fleet.name}: job {data[:12]!r} [0, {hi}] -> ({h}, {n}); time to "
-                    f"Result {wall:.3f} s at the client ({(hi + 1) / wall:,.0f} nonces/s), "
-                    f"{sched_s} s in the scheduler; {len(sent)} Requests sent [{self.card}]")
-                if tid is None or not done or not sent:
-                    raise AssertionError(f"{fleet.name}: job {data!r} is not in the trace")
-            return out, rows
-
-        def held(fleet, jobs, got, wl=None):
-            for (data, hi), (h, n, _wall) in zip(jobs, got):
-                w = wl or workloads.get("sha256d")
-                if h != w.hash_nonce(data, n) or not 0 <= n <= hi:
-                    raise AssertionError(f"{fleet.name}: bad Result ({h}, {n}) for {data!r}")
-                if hi <= SERVE_JOBS[-1][1]:
-                    want = min_hash_range(data, 0, hi) if wl is None else wl.min_range(data, 0, hi)
-                    how = "min_hash_range"
-                else:
-                    r = sweep_min_hash(data, 0, hi, device=self.dev, workload=wl)
-                    want, how = (r.hash, r.nonce), "sweep_min_hash on the card"
-                if (h, n) != want:
-                    raise AssertionError(f"{fleet.name}: {data!r} [0, {hi}]: served ({h}, {n}) "
-                                         f"!= {how} {want}")
-                log(f"  {fleet.name}: {data[:12]!r} [0, {hi}] equals {how}: {want}")
 
         try:
             # (a) the blocking server, two miners, three concurrent jobs.
@@ -1767,8 +1815,8 @@ class Smoke:
             drill = [SERVE_DRILL]
             got_d, killed_at = s1.jobs(drill, kill=0)
             time.sleep(1.5)  # the server's ticker flushes its trace each second
-            rows1, trace1 = traced(s1, jobs, got)
-            rows_d, _ = traced(s1, drill, got_d)
+            rows1, trace1 = self.serve_traced(s1, jobs, got)
+            rows_d, _ = self.serve_traced(s1, drill, got_d)
             dead = s1.miners[0][1]
             tid = rows_d[0]["trace_id"]
             to_dead = [r for r in trace1 if r["trace"] == tid and r["event"] == "dispatch"
@@ -1806,14 +1854,14 @@ class Smoke:
             jobs3 = [SERVE_B2_JOB]
             got3, _ = s3.jobs(jobs3)
             time.sleep(1.5)
-            rows2, _ = traced(s2, jobs2, got2)
-            rows3, _ = traced(s3, jobs3, got3)
+            rows2, _ = self.serve_traced(s2, jobs2, got2)
+            rows3, _ = self.serve_traced(s3, jobs3, got3)
             s2.stop()
             s3.stop()
             # The Results, held on the card after every fleet is idle.
-            held(s1, jobs + drill, got + got_d)
-            held(s2, jobs2, got2)
-            held(s3, jobs3, got3, b2)
+            self.serve_held(s1, jobs + drill, got + got_d)
+            self.serve_held(s2, jobs2, got2)
+            self.serve_held(s3, jobs3, got3, b2)
             if got2[0][:2] != got[0][:2]:
                 raise AssertionError("the async-ingress server's Result differs")
             for f in fleets:
@@ -2028,11 +2076,12 @@ class Smoke:
             return lsp.Client("127.0.0.1", port)
         real = lspnet.create_client_endpoint
 
-        async def bound(host, p):
+        async def bound(host, p, label=None):
             loop = asyncio.get_running_loop()
             transport, protocol = await loop.create_datagram_endpoint(
                 udp._QueueProtocol, local_addr=(src, 0))
-            return udp.UDPEndpoint(transport, protocol, remote=(host, p))
+            return udp.UDPEndpoint(transport, protocol, is_server=False, remote=(host, p),
+                                   label=label)
 
         lspnet.create_client_endpoint = bound
         try:
@@ -2665,6 +2714,117 @@ class Smoke:
             f"{pair['bare']} [{self.card}] (no claim)")
         return dict(nonces_per_s=pair, dispatch=disp, interval_s=TELE_INTERVAL, card=self.card)
 
+    def phase_chaos(self) -> None:
+        """The chaos layer on the card.  (1) Four drills in this process:
+        the port's ``run_drill(backend="auto")`` (three miners on the cuda
+        rung, a resilient pair and the kill target, a retrying client) under
+        each standard scenario, ``miner-partition`` with miner-0 killed at
+        0.8 s.  Each Result must equal this process's ``sweep_min_hash``
+        over the range on the card (an independent split, swept before the
+        drill) and hashlib on its nonce; every miner's search must be the
+        cuda rung, the kernel's launches must rise in the drill, and the
+        drill's counters must show each fault class its scenario arms (for
+        the kill, a reassignment or a re-Join).  (2) One job through an
+        ``apps.server`` process armed by ``BMT_CHAOS_SCENARIO`` and
+        ``BMT_CHAOS_LOOP``, two ``apps.miner`` processes at their defaults
+        and an ``apps.client``: the Result held as the serving path holds
+        its jobs, the server's chaos counters (its health line after the
+        Result) showing the scenario's faults, the miners' launches.  Prints each leg's time
+        to Result, counters and launches beside the card."""
+        import shutil
+        import tempfile
+
+        from bitcoin_miner_tpu_torch.apps.drill import run_drill
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+
+        deadline = time.monotonic() + CHAOS_PHASE_S
+        drills, launches = {}, 0
+        for name, seed, kill_at in CHAOS_DRILLS:
+            data = f"chaos-card-{name}"
+            r = sweep_min_hash(data, 0, CHAOS_MAX_NONCE, device=self.dev)
+            want = (r.hash, r.nonce)
+            n0 = minhash.launches
+            rep = run_drill(name, seed=seed, data=data, max_nonce=CHAOS_MAX_NONCE,
+                            n_miners=CHAOS_MINERS, kill_miner_at=kill_at, backend="auto",
+                            timeout=min(CHAOS_DRILL_S, deadline - time.monotonic()),
+                            oracle=lambda d, lo, hi, want=want: want)
+            row = dict(rep.as_dict(), launches=minhash.launches - n0)
+            drills[name] = row
+            log(f"  drill {name} (seed {seed}, kill {kill_at}): Result {rep.got} in "
+                f"{rep.result_s} s (drill {rep.elapsed:.3f} s); sweep_min_hash on the card "
+                f"{want}; launches {row['launches']}; miners {rep.miners}; counters "
+                f"{rep.counters} [{self.card}]")
+            if rep.errors or not rep.ok or rep.got is None:
+                raise AssertionError(f"drill {name}: {row}")
+            if hash_nonce(data, rep.got[1]) != rep.got[0]:
+                raise AssertionError(f"drill {name}: hashlib disagrees with {rep.got}")
+            if row["launches"] <= 0:
+                raise AssertionError(f"drill {name}: the kernel was never launched")
+            if {m["tier"] for m in rep.miners.values()} != {"cuda"}:
+                raise AssertionError(f"drill {name}: a miner off the cuda rung: {rep.miners}")
+            missing = [k for k in CHAOS_WANT[name] if rep.counters.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"drill {name}: no {missing} in {rep.counters}")
+            if kill_at is not None and rep.counters.get("sched.chunks_reassigned", 0) \
+                    + rep.counters.get("miner.reconnects", 0) <= 0:
+                raise AssertionError(f"drill {name}: no reassignment or re-Join: "
+                                     f"{rep.counters}")
+            launches += row["launches"]
+        work = tempfile.mkdtemp(prefix="chaos-")
+        keep = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build", "chaos")
+        fleet = None
+        try:
+            fleet = ServeFleet(work, "chaos-serve", deadline, miner_args=SERVE_MINER_ARGS,
+                               env=CHAOS_SERVE_ENV)
+            fleet.start_miners(2, serial=False)
+            jobs = [CHAOS_SERVE_JOB]
+            before = re.findall(r"health .*", fleet.read("log.txt"))
+            got, _ = fleet.jobs(jobs)
+            t_end = time.monotonic()
+            self.serve_held(fleet, jobs, got)
+            time.sleep(1.5)  # the server's ticker flushes its trace each second
+            rows, _ = self.serve_traced(fleet, jobs, got)
+            # The server's chaos counters: its health line (every 10 s, a
+            # repeat skipped) as of a tick after the Result.
+            while time.monotonic() < t_end + 11 and len(
+                    re.findall(r"health .*", fleet.read("log.txt"))) <= len(before):
+                time.sleep(0.1)
+            health = re.findall(r"health .*", fleet.read("log.txt"))[-1]
+            counters = {f"chaos.{k}": float(v) for k, v in HEALTH_CHAOS.findall(health)}
+            start = {f"chaos.{k}": float(v) for k, v in HEALTH_CHAOS.findall(
+                before[-1] if before else "")}
+            fleet.stop()
+            log(f"  served job under {CHAOS_SERVE_ENV}: {rows[0]['data']!r} "
+                f"[0, {rows[0]['max_nonce']}] in {rows[0]['client_wall_s']:.3f} s at the "
+                f"client, {rows[0]['sched_s']} s in the scheduler; the server's counters "
+                f"{counters} (at the last health line before the job: {start}); launches "
+                f"per drained miner {fleet.launches} [{self.card}]")
+            # A short job's server may send no packet inside the 0.2 s cut
+            # of a period: any of the scenario's faults shows that the armed
+            # weather shaped the traffic.
+            if not any(counters.get(k, 0) > 0 for k in CHAOS_WANT[
+                    CHAOS_SERVE_ENV["BMT_CHAOS_SCENARIO"]]):
+                raise AssertionError(f"served job: no chaos counter in {health!r}")
+            if len(fleet.launches) != 2 or not all(ln["minhash"] > 0 for ln in fleet.launches):
+                raise AssertionError(f"served job: a miner never launched: {fleet.launches}")
+            launches += sum(ln["minhash"] for ln in fleet.launches)
+            fleet.stopped.join(timeout=30)
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the chaos phase ran past {CHAOS_PHASE_S} s")
+            self.k_stats["launches_chaos"] = launches
+            self.chaos = dict(drills=drills, served=dict(
+                rows[0], env=CHAOS_SERVE_ENV, counters=counters, counters_before_job=start,
+                launches=fleet.launches),
+                card=self.card)
+        finally:
+            if fleet is not None:
+                fleet.kill_all()
+            shutil.rmtree(keep, ignore_errors=True)
+            shutil.copytree(work, keep, dirs_exist_ok=True)
+            shutil.rmtree(work, ignore_errors=True)
+
     def phase_hot_path(self) -> None:
         """The hot plane: (a) the merge kernel against its plain version;
         (b) hot sweeps against per-chunk ones and the oracle; (c) the hot
@@ -3115,6 +3275,7 @@ class Smoke:
             ("telemetry path", self.phase_telemetry),
             ("gateway path", self.phase_gateway),
             ("autoscale path", self.phase_autoscale),
+            ("chaos path", self.phase_chaos),
             ("hot path", self.phase_hot_path),
             ("numbers", self.phase_numbers),
         ]
@@ -3165,7 +3326,7 @@ class Smoke:
                 "lane_ops_two_blocks", "ms_56_chars", "ms_full_fold_56_chars",
                 "plain_ms_56_chars", "bound_ms_56_chars", "lane_ops_56_chars",
                 "launches_serving", "launches_gateway", "launches_autoscale",
-                "sm_clock_mhz", "sass", "ptxas")},
+                "launches_chaos", "sm_clock_mhz", "sass", "ptxas")},
         }, {
             "name": "sha256_minhash_factored",
             "route": "cuda",
@@ -3202,7 +3363,8 @@ class Smoke:
         }], "launches_preimage_path": s["launches_preimage"], "native": self.native,
             "mesh_path": self.mesh, "multihost_ranks": self.multihost,
             "serving_path": self.serving, "telemetry_path": self.tele,
-            "gateway_path": self.gate, "autoscale_path": self.autoscale, "hot_path": self.hot}
+            "gateway_path": self.gate, "autoscale_path": self.autoscale,
+            "chaos_path": self.chaos, "hot_path": self.hot}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, and its L1
+(``lspnet/``) imports no torch either.
 
 Checked on the source (AST), not on ``sys.modules``: the test process itself
 has JAX loaded already.  No string constant of the port names a module of
@@ -83,3 +84,21 @@ def test_string_checker_catches_reference_modules():
     for text in ("bitcoin_miner_tpu_torch.apps.miner", "bitcoin_miner_tpu_torch",
                  "bitcoin_miner_tpu/ops/pallas_sha256.py:93", "the JAX package's miner"):
         assert not _REF_MODULE.search(text), text
+
+
+# The transport's L1 needs neither JAX nor torch: a process that only moves
+# packets (a server, a client, an echo runner) never pays for importing one.
+LSPNET_FILES = sorted((ROOT / "bitcoin_miner_tpu_torch" / "lspnet").glob("*.py"))
+
+
+def test_lspnet_files_exist():
+    names = {p.name for p in LSPNET_FILES}
+    assert {"__init__.py", "udp.py", "faults.py", "chaos.py"} <= names
+
+
+@pytest.mark.parametrize(
+    "path", LSPNET_FILES, ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_lspnet_imports_no_torch(path):
+    bad = [m for m in _imported_modules(path) if m == "torch" or m.startswith("torch.")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

@@ -9,13 +9,14 @@
   staged by the other's ``main``, in both directions; a file of another
   workload stages nothing, in both; a resubmitted job resumes from it.
 - The CLI contracts: each package's ``server.main`` and ``client.main``
-  print the same stdout for the same argv, the chaos layer's switch (not
-  ported yet) stops ``main`` before it binds a port, every spelling of the
-  fleet metrics plane's flags arms a hub with the sink it names (a bad
-  ``--slo=`` value or a busy telemetry port stops ``main`` with one line
-  before the serving port binds), every spelling of the gateway's and the
-  autoscaler's flags arms a ``Gateway`` or the controller in both shells,
-  and a bad number or autoscale spec stops ``main`` before it binds.
+  print the same stdout for the same argv (the chaos layer's switch,
+  ``BMT_CHAOS_SCENARIO``, is held in ``test_torch_chaos.py``), every
+  spelling of the fleet metrics plane's flags arms a hub with the sink it
+  names (a bad ``--slo=`` value or a busy telemetry port stops ``main``
+  with one line before the serving port binds), every spelling of the
+  gateway's and the autoscaler's flags arms a ``Gateway`` or the
+  controller in both shells, and a bad number or autoscale spec stops
+  ``main`` before it binds.
 - The three CLIs as processes: a job runs from the port client through the
   port server to a port miner with no module of JAX or of the JAX package
   loaded in any of them.
@@ -259,30 +260,6 @@ def test_client_cli_matches_reference(argv):
         outs.append(out.getvalue())
     assert outs[1] == outs[0]
     assert outs[1]
-
-
-UNPORTED_ENV = ["BMT_CHAOS_SCENARIO"]
-
-
-@pytest.mark.parametrize("shell", [[], ["--async-ingress"]], ids=["serve", "async"])
-@pytest.mark.parametrize("spelling", UNPORTED_ENV)
-def test_unported_server_flag_fails_before_binding(spelling, shell, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-
-    def bound(*_a, **_k):
-        raise AssertionError("the server bound a port")
-
-    monkeypatch.setattr(server.lsp, "Server", bound)
-    monkeypatch.setattr(server, "AsyncIngress", bound)
-    argv = ["server", "6060", *shell]
-    if spelling.startswith("BMT_"):
-        monkeypatch.setenv(spelling, "1")
-    else:
-        argv.append(spelling)
-    with redirect_stdout(io.StringIO()) as out:
-        assert server.main(argv) == 0
-    name = spelling.partition("=")[0]
-    assert out.getvalue() == f"Invalid server configuration: {name} is not ported yet\n"
 
 
 def _free_udp_port() -> int:
