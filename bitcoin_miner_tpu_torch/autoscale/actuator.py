@@ -15,7 +15,7 @@ touches the world lives here, one class per actuation axis:
   tenant WFQ weight overrides under the serve event lock.
 - :class:`CellActuator` (axis b) signals a federation replica's early
   membership handoff (the DRAINING broadcast + successor handoff path).
-  Nothing wires it until the federation is ported.
+  The federation binary (``apps/federation.py --autoscale``) wires it.
 
 :class:`ControllerPump` is the wall-clock driver: a daemon thread
 ticking the controller every ``interval`` seconds — the ONLY place the

@@ -19,7 +19,7 @@ from .errors import (
 )
 from .message import Message, MsgType
 from .params import Params
-from .sync import Client, Server
+from .sync import Client, Server, shared_loop
 
 __all__ = [
     "AsyncClient",
@@ -34,4 +34,5 @@ __all__ = [
     "ConnLostError",
     "CannotEstablishConnectionError",
     "MAX_MESSAGE_SIZE",
+    "shared_loop",
 ]

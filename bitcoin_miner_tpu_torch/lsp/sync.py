@@ -131,6 +131,17 @@ class _LoopThread:
         self._thread.join(timeout=5)
 
 
+def shared_loop(name: str) -> _LoopThread:
+    """A caller-owned loop thread many sync facades can share: pass it as
+    ``Client(..., loop=...)`` or ``Server(..., loop=...)`` so N conns cost
+    ONE thread instead of N (the federation's forwarder pool and its
+    federation port ride one).  The caller owns the lifetime: ``stop()`` it
+    after closing every facade that rides it (a facade on a borrowed loop
+    never stops the loop itself).  The thread keeps ``name``; a facade's
+    ``label`` does not rename it."""
+    return _LoopThread(name)
+
+
 class Client:
     """Blocking LSP client (API parity: lsp/client_api.go:6-30).
 
@@ -140,19 +151,27 @@ class Client:
     ``label`` names the endpoint to the chaos layer (``lspnet.CHAOS``), as
     in the reference; it also names the conn's loop (its thread and its
     sanitizer resource) and rides the ``lsp connect`` trace event.
+
+    ``loop`` borrows a :func:`shared_loop` instead of spawning a private
+    loop thread: the conn's coroutines run on the shared loop and
+    ``close()`` leaves the loop alive for its owner to stop.
     """
 
     def __init__(
         self, host: str, port: int, params: Optional[Params] = None,
-        label: Optional[str] = None,
+        label: Optional[str] = None, loop: Optional[_LoopThread] = None,
     ) -> None:
-        self._lt = _LoopThread(f"lsp-client-{label or f'{host}:{port}'}")
+        self._owns_loop = loop is None
+        self._lt = loop if loop is not None else _LoopThread(
+            f"lsp-client-{label or f'{host}:{port}'}"
+        )
         try:
             self._c: AsyncClient = self._lt.run(
                 AsyncClient.connect(host, port, params, label=label)
             )
         except BaseException:
-            self._lt.stop()
+            if self._owns_loop:
+                self._lt.stop()
             raise
         # Conn-lifecycle trace events: the connect/close pairs bracket each
         # reconnect epoch, so a reader can attribute retransmit bursts to a
@@ -176,32 +195,40 @@ class Client:
 
     def close(self) -> None:
         """Block until pending sends are acked (or the conn is lost).
-        Idempotent: a second close is a no-op."""
+        Idempotent: a second close is a no-op.  A borrowed shared loop
+        stays running for its owner."""
         trace.emit(None, "lsp", "close", conn=self._c.conn_id)
         try:
             self._lt.run(self._c.close())
         except ConnClosedError:
             return  # already closed
         finally:
-            self._lt.stop()
+            if self._owns_loop:
+                self._lt.stop()
 
 
 class Server:
     """Blocking LSP server (API parity: lsp/server_api.go:6-39).
     ``label`` names its endpoint to the chaos layer and its loop, as
-    :class:`Client`'s does."""
+    :class:`Client`'s does.  ``loop`` borrows a :func:`shared_loop`, as
+    :class:`Client`'s does: the federation port rides its cell's one
+    forwarder loop so a cell's thread count is O(1) in peers."""
 
     def __init__(
         self, port: int, params: Optional[Params] = None, host: str = "127.0.0.1",
-        label: Optional[str] = None,
+        label: Optional[str] = None, loop: Optional[_LoopThread] = None,
     ) -> None:
-        self._lt = _LoopThread(f"lsp-server-{label or f':{port}'}")
+        self._owns_loop = loop is None
+        self._lt = loop if loop is not None else _LoopThread(
+            f"lsp-server-{label or f':{port}'}"
+        )
         try:
             self._s: AsyncServer = self._lt.run(
                 AsyncServer.create(port, params, host, label=label)
             )
         except BaseException:
-            self._lt.stop()
+            if self._owns_loop:
+                self._lt.stop()
             raise
 
     @property
@@ -235,10 +262,12 @@ class Server:
         self._lt.call(self._s.close_conn, conn_id)
 
     def close(self) -> None:
-        """Idempotent graceful shutdown."""
+        """Idempotent graceful shutdown.  A borrowed shared loop stays
+        running for its owner."""
         try:
             self._lt.run(self._s.close())
         except ConnClosedError:
             return  # already closed
         finally:
-            self._lt.stop()
+            if self._owns_loop:
+                self._lt.stop()

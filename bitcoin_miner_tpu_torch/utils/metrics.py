@@ -329,7 +329,28 @@ def format_quantiles(h) -> str:
 #:   gateway.prefill_jobs      speculative gap-sweep jobs submitted while idle
 #:   gateway.prefill_preempted prefill jobs cancelled by an arriving real request
 #:   gateway.coalesce_lost     nonces whose sub-range answerability span coalescing erased
+#:   federation.forwarded      requests routed to their home replica's federation port
+#:   federation.local_answers  non-home requests answered from local cache/gossiped spans
+#:   federation.forward_failovers  forward attempts re-routed past a dead replica
+#:   federation.forward_timeouts   forwards abandoned at the per-forward deadline
+#:   federation.local_fallbacks    forwards served locally (every peer unreachable)
+#:   federation.remote_results     forwarded requests answered by a peer's Result
+#:   federation.gossip_beats   span-gossip messages sent to a peer
+#:   federation.gossip_frames  span-gossip datagrams written (each under the wire ceiling)
+#:   federation.gossip_rx      span-gossip messages received and decoded
+#:   federation.gossip_spans_merged  peer spans folded into the local span store
+#:   federation.gossip_errors  gossip sends/decodes/beats that failed
+#:   federation.gossip_full_syncs  full-state anti-entropy beats sent (cycle or lag escalation)
+#:   federation.shed_skips     forwards refused by a peer whose heartbeats prove it alive
+#:   federation.drain_refused  requests turned away by a DRAINING cell
+#:   federation.handoffs_sent  drain handoffs shipped to the ring successor
+#:   fed.heartbeats            gossip heartbeats received from peers
+#:   fed.suspected             peers marked SUSPECT by the failure detector
+#:   fed.false_suspicions      suspects that heartbeat again before the confirmation window
 #:   fed.handoff_jobs          resumable identities imported from a draining peer
+#:   fed.shed_holds            heartbeats held SHEDDING by flap-damping hysteresis
+#:   fed.peer_state            per-peer membership gauge (fed.peer_state.<peer>: 0 OK .. 4 DEAD)
+#:   gossip.retransmits        unacked delta spans resent by the ack-gap recovery
 #:   fed.conns_live            live peer conns at the federation transport (gauge)
 #:   ingress.events            payloads dispatched on the asyncio ingress loop
 #:   ingress.conns_lost        conns the async ingress reaped after epoch loss

@@ -127,7 +127,24 @@ Phases (any failure ends the run non-zero, with no result line):
    ``BMT_CHAOS_LOOP`` with two miners, held as the serving path holds its
    jobs, the server's chaos counters from its health line; each leg's time
    to Result, counters and launches;
-17. hot path — the hot plane's merge kernel against its plain version,
+17. federation path — the federation tier and the model entry: (a) the
+   port's four federation drills in this process (``shed-storm``,
+   ``drain-handoff`` with its two miners paced to 2.5e9 nonces/s each,
+   ``death-detect``, ``ack-retransmit``), every job to 9,999,999,999 and
+   miners on the cuda rung, each job's oracle ``sweep_min_hash`` on the
+   card: each drill ``ok``, its miners' rung and launches, the resumed job
+   sweeping fewer nonces than the scratch one; (b) two ``apps.federation``
+   replica processes (r1, r2, gossip every 0.25 s) with one ``apps.miner``
+   each and ``apps.client`` jobs: a forwarded job, twins at both ports
+   swept once, a range r1 solved answered by r2 from gossip with no launch,
+   a job answered by r1 after r2 is SIGKILLed, then r2 restarted and r1
+   SIGTERMed (``Replica r1 draining``, exit 0, the handoff logged by r2);
+   every Result held to ``sweep_min_hash`` and hashlib; (c)
+   ``forward_step_example`` on the card against its plain version and, at
+   the main path's shape, against ``sweep_min_hash``; each leg's time to
+   Result, the cells' ``federation.*`` / ``fed.*`` / ``gossip.*`` counters
+   and launches per miner;
+18. hot path — the hot plane's merge kernel against its plain version,
    bit-exact, over seeded sequences and random carries with one and two
    shard outputs (ties, sentinels, a vacant carry against h0 == U32_MAX);
    ``sweep_min_hash(hot=True)`` against the per-chunk sweep on 1e9-nonce
@@ -141,7 +158,7 @@ Phases (any failure ends the run non-zero, with no result line):
    (per-chunk, hot) in nonces/s; the merge's device time per launch (a
    CUDA Graph of launches) beside an empty kernel's timed the same way,
    the host's issue time per launch and its plain version's;
-18. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+19. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
@@ -399,13 +416,97 @@ CHAOS_SERVE_JOB = ("cmu440", 9_999_999_999)
 CHAOS_DRILL_S = 60
 CHAOS_PHASE_S = 150
 HEALTH_CHAOS = re.compile(r"'chaos\.(\w+)': ([\d.]+)")
+# The federation phase.  (a) The port's four drills in this process, miners
+# on the cuda rung, every job to 9,999,999,999 (~0.9 s of kernel; a job of
+# d <= 5 would be folded on the host with no launch): death-detect's key
+# (homed on the dead cell), ack-retransmit's job, shed-storm's storm jobs
+# (never swept: the storming cell has no miner) and its forwarded job, and
+# drain-handoff's job to
+# 9,999,999,999 with each of its two miners paced to 2.5e9 nonces/s, so its
+# sweep takes ~2 s and the drain lands mid-flight.  (b) Two replica
+# processes r1 and r2 gossiping every 0.25 s (membership declares a dead
+# peer after 6 beats, 1.5 s), one miner each at its defaults, and client
+# jobs to 9,999,999,999.  (c) The model entry at the main path's shape.
+# Then the phase's time limit.
+FED_CELLS = ("r1", "r2")
+FED_DRILL_HI = 9_999_999_999
+FED_DRAIN_RATE = 2_500_000_000.0
+FED_GOSSIP_S = 0.25
+FED_JOB_HI = 9_999_999_999
+FED_DRAIN_S = 30  # SIGTERM to exit, its successor live
+FED_PHASE_S = 75
+HEALTH_EXTRA = re.compile(r" extra (\{.*?\})")
 
 
 def log(*a) -> None:
     print(*a, flush=True)
 
 
-class ServeFleet:
+class FleetDir:
+    """Processes of a fleet in one working directory (``self.dir``, with
+    ``self.env``, ``self.name`` and ``self.deadline``): each process's
+    output lands in ``<label>.out`` there.  Clients are ``apps.client``
+    processes, labelled ``client<i>`` in order (``self.clients``)."""
+
+    def _spawn(self, label: str, args):
+        out = open(os.path.join(self.dir, f"{label}.out"), "w")
+        try:
+            return subprocess.Popen([sys.executable, *args], cwd=self.dir, env=self.env,
+                                    stdout=out, stderr=subprocess.STDOUT)
+        finally:
+            out.close()
+
+    def read(self, label: str) -> str:
+        path = os.path.join(self.dir, label)
+        if not os.path.exists(path):
+            return ""
+        with open(path) as f:
+            return f.read()
+
+    def spawn_clients(self, jobs):
+        """One ``apps.client`` process per job ``(port, data, maxNonce)``,
+        all at once; returns ``[(label, start time, process)]``."""
+        started = []
+        for port, data, hi in jobs:
+            label = f"client{len(self.clients)}"
+            self.clients.append(label)
+            started.append((label, time.monotonic(), self._spawn(label, [
+                "-m", "bitcoin_miner_tpu_torch.apps.client", f"127.0.0.1:{port}",
+                data, str(hi)])))
+        return started
+
+    def finish_clients(self, started, jobs):
+        """Wait for the clients :meth:`spawn_clients` started on ``jobs``;
+        returns ``[(hash, nonce, seconds from the client's start to its
+        exit)]``.  A client that prints anything but a Result, exits
+        non-zero or runs past SERVE_JOB_S fails."""
+        ended = {}  # client index -> its exit time, polled as they come
+        while len(ended) < len(started):
+            now = time.monotonic()
+            for i, (_label, t0, p) in enumerate(started):
+                if i in ended:
+                    continue
+                if p.poll() is not None:
+                    ended[i] = now
+                elif now > min(t0 + SERVE_JOB_S, self.deadline):
+                    p.kill()
+                    p.wait()
+                    raise AssertionError(f"{self.name}: job {jobs[i]} hung past "
+                                         f"{now - t0:.0f} s")
+            time.sleep(0.005)
+        out = []
+        for i, ((label, t0, p), job) in enumerate(zip(started, jobs)):
+            dt = ended[i] - t0
+            text = self.read(f"{label}.out")
+            m = re.fullmatch(r"Result (\d+) (\d+)\n", text)
+            if p.returncode != 0 or not m:
+                raise AssertionError(f"{self.name}: job {job}: client exited "
+                                     f"{p.returncode}, printed {text!r}")
+            out.append((int(m.group(1)), int(m.group(2)), dt))
+        return out
+
+
+class ServeFleet(FleetDir):
     """One port server process (``apps.server``) and its miner processes
     (``apps.miner`` through ``SERVE_MINER_CODE``) on loopback, in a working
     directory of their own: the server's ``log.txt`` and its ``--trace``
@@ -434,21 +535,6 @@ class ServeFleet:
         self.clients = []  # output labels of the client processes
         self.launches = []  # each drained miner's launch counts
         self.stopped = None  # the thread that stops the server
-
-    def _spawn(self, label: str, args):
-        out = open(os.path.join(self.dir, f"{label}.out"), "w")
-        try:
-            return subprocess.Popen([sys.executable, *args], cwd=self.dir, env=self.env,
-                                    stdout=out, stderr=subprocess.STDOUT)
-        finally:
-            out.close()
-
-    def read(self, label: str) -> str:
-        path = os.path.join(self.dir, label)
-        if not os.path.exists(path):
-            return ""
-        with open(path) as f:
-            return f.read()
 
     def wait_for(self, pattern: str, count: int, timeout: float):
         """The ``count``-th match of ``pattern`` in the server's log.txt;
@@ -489,13 +575,7 @@ class ServeFleet:
         ``[(hash, nonce, seconds from the client's start to its exit)]`` and
         the kill's monotonic time; a client that prints anything but a
         Result, exits non-zero or runs past SERVE_JOB_S fails."""
-        started = []
-        for data, hi in jobs:
-            label = f"client{len(self.clients)}"
-            self.clients.append(label)
-            started.append((label, time.monotonic(), self._spawn(label, [
-                "-m", "bitcoin_miner_tpu_torch.apps.client", f"127.0.0.1:{self.port}",
-                data, str(hi)])))
+        started = self.spawn_clients([(self.port, data, hi) for data, hi in jobs])
         killed_at = None
         if kill is not None:
             self.wait_for(rf"request from \d+: data={re.escape(repr(jobs[0][0]))}", 1, 60)
@@ -504,30 +584,7 @@ class ServeFleet:
             proc.kill()
             killed_at = time.monotonic()
             proc.wait()
-        ended = {}  # client index -> its exit time, polled as they come
-        while len(ended) < len(started):
-            now = time.monotonic()
-            for i, (_label, t0, p) in enumerate(started):
-                if i in ended:
-                    continue
-                if p.poll() is not None:
-                    ended[i] = now
-                elif now > min(t0 + SERVE_JOB_S, self.deadline):
-                    p.kill()
-                    p.wait()
-                    raise AssertionError(f"{self.name}: job {jobs[i]} hung past "
-                                         f"{now - t0:.0f} s")
-            time.sleep(0.005)
-        out = []
-        for i, ((label, t0, p), job) in enumerate(zip(started, jobs)):
-            dt = ended[i] - t0
-            text = self.read(f"{label}.out")
-            m = re.fullmatch(r"Result (\d+) (\d+)\n", text)
-            if p.returncode != 0 or not m:
-                raise AssertionError(f"{self.name}: job {job}: client exited "
-                                     f"{p.returncode}, printed {text!r}")
-            out.append((int(m.group(1)), int(m.group(2)), dt))
-        return out, killed_at
+        return self.finish_clients(started, jobs), killed_at
 
     def stop(self) -> None:
         """SIGTERM the live miners (they answer what they hold and exit 0,
@@ -656,40 +713,10 @@ class TeleFleet(ServeFleet):
         return out
 
 
-class GateFleet(ServeFleet):
-    """A serving fleet whose miners are the plain port miner binary
-    (``python -m bitcoin_miner_tpu_torch.apps.miner``, at its defaults:
-    the cuda rung on the card), observed by WORKER_HOOK: the fleet's
-    PYTHONPATH starts with a directory holding the hook, and its processes
-    report to ``<name>-workers/``.  Processes the server spawns inherit
-    both."""
-
-    def __init__(self, workdir: str, name: str, deadline: float, server_args=(),
-                 env=None) -> None:
-        self.workers = os.path.join(workdir, f"{name}-workers")
-        hook = os.path.join(workdir, "hook")
-        os.makedirs(self.workers)
-        os.makedirs(hook, exist_ok=True)
-        with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
-            f.write(WORKER_HOOK)
-        self.extra_env = {"SMOKE_WORKER_DIR": self.workers, **(env or {}),
-                          "PYTHONPATH": os.pathsep.join(
-                              p for p in (hook, ROOT, os.environ.get("PYTHONPATH")) if p)}
-        self.launches_by_miner = []  # each stopped miner's final count
-        super().__init__(workdir, name, deadline, server_args)
-
-    def _spawn(self, label: str, args):
-        self.env.update(self.extra_env)
-        return super()._spawn(label, args)
-
-    def start_port_miners(self, n: int, extra=()) -> None:
-        """``n`` plain port miners at their defaults, all at once, until
-        every one joined."""
-        for _ in range(n):
-            self.miners.append((self._spawn(f"miner{len(self.miners)}", [
-                "-m", "bitcoin_miner_tpu_torch.apps.miner", f"127.0.0.1:{self.port}",
-                *extra]), None))
-        self.wait_for(r"miner (\d+) joined", len(self.miners), SERVE_JOIN_S)
+class WorkerObserver:
+    """Launch counts and exit reports of plain port miner processes
+    observed by WORKER_HOOK in ``self.workers`` (needs ``self.name`` and
+    ``self.deadline`` too)."""
 
     def live_launches(self) -> dict:
         """pid -> the min-hash kernel's launches so far, per observed miner
@@ -726,6 +753,49 @@ class GateFleet(ServeFleet):
                     rep = json.load(f)
                 out[rep["pid"]] = rep
         return out
+
+
+def write_hook(workdir: str) -> str:
+    """WORKER_HOOK as ``sitecustomize`` in ``<workdir>/hook``; returns
+    that directory, to lead a fleet's PYTHONPATH."""
+    hook = os.path.join(workdir, "hook")
+    os.makedirs(hook, exist_ok=True)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(WORKER_HOOK)
+    return hook
+
+
+class GateFleet(WorkerObserver, ServeFleet):
+    """A serving fleet whose miners are the plain port miner binary
+    (``python -m bitcoin_miner_tpu_torch.apps.miner``, at its defaults:
+    the cuda rung on the card), observed by WORKER_HOOK: the fleet's
+    PYTHONPATH starts with a directory holding the hook, and its processes
+    report to ``<name>-workers/``.  Processes the server spawns inherit
+    both."""
+
+    def __init__(self, workdir: str, name: str, deadline: float, server_args=(),
+                 env=None) -> None:
+        self.workers = os.path.join(workdir, f"{name}-workers")
+        hook = write_hook(workdir)
+        os.makedirs(self.workers)
+        self.extra_env = {"SMOKE_WORKER_DIR": self.workers, **(env or {}),
+                          "PYTHONPATH": os.pathsep.join(
+                              p for p in (hook, ROOT, os.environ.get("PYTHONPATH")) if p)}
+        self.launches_by_miner = []  # each stopped miner's final count
+        super().__init__(workdir, name, deadline, server_args)
+
+    def _spawn(self, label: str, args):
+        self.env.update(self.extra_env)
+        return super()._spawn(label, args)
+
+    def start_port_miners(self, n: int, extra=()) -> None:
+        """``n`` plain port miners at their defaults, all at once, until
+        every one joined."""
+        for _ in range(n):
+            self.miners.append((self._spawn(f"miner{len(self.miners)}", [
+                "-m", "bitcoin_miner_tpu_torch.apps.miner", f"127.0.0.1:{self.port}",
+                *extra]), None))
+        self.wait_for(r"miner (\d+) joined", len(self.miners), SERVE_JOIN_S)
 
     def stop(self) -> None:
         """SIGTERM the miners this script started (they answer what they
@@ -772,6 +842,125 @@ class GateFleet(ServeFleet):
             except ValueError:
                 continue  # torn by a write
         raise AssertionError(f"{self.name}: no fleet-log state")
+
+
+class FedFleet(WorkerObserver, FleetDir):
+    """Two port replica processes (``python -m
+    bitcoin_miner_tpu_torch.apps.federation``, r1 and r2, each with the
+    other as its peer) and one plain port miner per cell at its defaults
+    (the cuda rung), observed by WORKER_HOOK, in a working directory of
+    their own: each cell's ``log.<cell>.txt`` and ``<cell>.trace.jsonl``
+    and every process's output land there.  Clients are ``apps.client``
+    processes."""
+
+    def __init__(self, workdir: str, deadline: float) -> None:
+        import socket
+
+        self.name = "federation"
+        self.deadline = deadline
+        self.dir = os.path.join(workdir, "federation")
+        self.workers = os.path.join(workdir, "federation-workers")
+        os.makedirs(self.dir)
+        os.makedirs(self.workers)
+        hook = write_hook(workdir)
+        self.env = {**os.environ, "SMOKE_WORKER_DIR": self.workers,
+                    "PYTHONPATH": os.pathsep.join(
+                        p for p in (hook, ROOT, os.environ.get("PYTHONPATH")) if p)}
+        socks = []
+        for _ in range(2 * len(FED_CELLS)):
+            sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            sock.bind(("127.0.0.1", 0))
+            socks.append(sock)
+        ports = [sock.getsockname()[1] for sock in socks]
+        for sock in socks:
+            sock.close()
+        self.port = dict(zip(FED_CELLS, ports[:len(FED_CELLS)]))
+        self.fed_port = dict(zip(FED_CELLS, ports[len(FED_CELLS):]))
+        self.cells = {}  # cell -> its replica process
+        self.miners = {}  # cell -> its miner process
+        self.clients = []  # output labels of the client processes
+
+    def start_cell(self, cell: str, label: str) -> None:
+        """The replica ``cell`` on its ports; ``label`` names its stdout
+        (``<label>.out``) and its trace (``<label>.trace.jsonl``)."""
+        peers = ",".join(f"{o}=127.0.0.1:{self.fed_port[o]}" for o in FED_CELLS if o != cell)
+        self.cells[cell] = self._spawn(label, [
+            "-m", "bitcoin_miner_tpu_torch.apps.federation", str(self.port[cell]),
+            f"--cell={cell}", f"--fed-port={self.fed_port[cell]}", f"--peers={peers}",
+            f"--gossip-interval={FED_GOSSIP_S}", f"--trace={label}.trace.jsonl"])
+        self.wait_for(cell, rf"Replica {cell} listening", 1, 30, out=label)
+
+    def start(self) -> None:
+        """Both replicas, then one miner per cell (:meth:`joined` waits
+        for their Joins)."""
+        for cell in FED_CELLS:
+            self.start_cell(cell, cell)
+        for cell in FED_CELLS:
+            self.miners[cell] = self._spawn(f"miner-{cell}", [
+                "-m", "bitcoin_miner_tpu_torch.apps.miner", f"127.0.0.1:{self.port[cell]}"])
+
+    def joined(self) -> None:
+        for cell in FED_CELLS:
+            self.wait_for(cell, r"miner (\d+) joined", 1, SERVE_JOIN_S)
+
+    def wait_for(self, cell: str, pattern: str, count: int, timeout: float,
+                 out=None):
+        """The ``count``-th match of ``pattern`` in ``cell``'s log (in the
+        stdout ``<out>.out`` when given); fails if the replica exits or the
+        time runs out first."""
+        deadline = min(time.monotonic() + timeout, self.deadline)
+        label = f"{out}.out" if out else f"log.{cell}.txt"
+        while True:
+            found = re.findall(pattern, self.read(label))
+            if len(found) >= count:
+                return found[count - 1]
+            proc = self.cells[cell]
+            if proc.poll() is not None:
+                raise AssertionError(f"{cell} exited {proc.returncode}: "
+                                     f"{self.read(f'{cell}.out')[-2000:]!r}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{cell}: no {pattern!r} within {timeout} s")
+            time.sleep(0.05)
+
+    def jobs(self, jobs):
+        """:meth:`FleetDir.finish_clients` of one ``apps.client`` per job
+        ``(cell, data, maxNonce)``, all at once, at the cell's public
+        port."""
+        return self.finish_clients(self.spawn_clients(
+            [(self.port[cell], data, hi) for cell, data, hi in jobs]), jobs)
+
+    def trace(self, label: str):
+        rows = []
+        for line in self.read(f"{label}.trace.jsonl").splitlines():
+            try:
+                rows.append(json.loads(line))
+            except ValueError:
+                pass  # a line torn by a kill
+        return rows
+
+    def counters(self, cell: str) -> dict:
+        """The ``federation.*`` / ``fed.*`` / ``gossip.*`` counters of the
+        cell's last health line (every 10 s, a repeat skipped), and the
+        line's peer states."""
+        import ast
+
+        lines = re.findall(r"health .*", self.read(f"log.{cell}.txt"))
+        if not lines:
+            return {}
+        m = HEALTH_EXTRA.search(lines[-1])
+        extra = ast.literal_eval(m.group(1)) if m else {}
+        out = {k: v for k, v in extra.items()
+               if k.startswith(("federation.", "fed.", "gossip."))}
+        peers = re.search(r" fed_peers=(\S+)", lines[-1])
+        if peers:
+            out["fed_peers"] = peers.group(1)
+        return out
+
+    def kill_all(self) -> None:
+        for p in [*self.cells.values(), *self.miners.values()]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def parse_prom(text: str) -> dict:
@@ -916,6 +1105,7 @@ class Smoke:
         self.gate = {}  # the gateway path's legs, counters and launches
         self.autoscale = {}  # the autoscale path's workers, timeline and launches
         self.chaos = {}  # the chaos path's drills and served job
+        self.fed = {}  # the federation path's drills, process legs and model entry
 
     # ------------------------------------------------------------ helpers
 
@@ -2825,6 +3015,310 @@ class Smoke:
             shutil.copytree(work, keep, dirs_exist_ok=True)
             shutil.rmtree(work, ignore_errors=True)
 
+    def fed_drills(self) -> dict:
+        """Leg (a) of the federation path: the port's four drills in this
+        process, miners on ``make_search("auto")`` (the cuda rung).  Each
+        job's oracle is ``sweep_min_hash`` on the card, swept before the
+        drills (the drills' keys come from the same ring, so they are known
+        ahead); the kernel's count is set to 0 after those sweeps, so what
+        it reads after each drill is the drill's miners' alone."""
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.federation import Ring
+        from bitcoin_miner_tpu_torch.federation.drill import DRILLS, run_fed_drill
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+        from bitcoin_miner_tpu_torch.utils.metrics import METRICS
+
+        ring = Ring(["r0", "r1"])
+
+        def key(home, prefix):
+            return next(f"{prefix}{i}" for i in range(4096)
+                        if ring.home(f"{prefix}{i}") == home)
+
+        sizes = dict.fromkeys(DRILLS, FED_DRILL_HI)
+        keys = {"shed-storm": [key("r0", "calm")],
+                "drain-handoff": [key("r1", "drain"), key("r0", "scratch")],
+                "death-detect": [key("r1", "death")],
+                "ack-retransmit": [key("r1", "ackpart")]}
+        table = {}
+        for name, ks in keys.items():
+            for k in ks:
+                r = sweep_min_hash(k, 0, sizes[name], device=self.dev)
+                if hash_nonce(k, r.nonce) != r.hash:
+                    raise AssertionError(f"hashlib disagrees with sweep_min_hash on {k!r}")
+                table[(k, 0, sizes[name])] = (r.hash, r.nonce)
+
+        def oracle(d, lo, hi):
+            return table[(d, lo, hi)]  # a job the table lacks fails the drill
+
+        minhash.launches = 0  # counts from here on are this path's
+        drills = {}
+        for name in DRILLS:
+            kw = dict(hi=sizes[name], backend="auto", oracle=oracle)
+            if name == "drain-handoff":
+                kw["rate"] = FED_DRAIN_RATE
+            before, n0, t0 = METRICS.snapshot(), minhash.launches, time.monotonic()
+            rep = run_fed_drill(name, seed=1, **kw)
+            after = METRICS.snapshot()
+            counters = {k: after[k] - before.get(k, 0) for k in sorted(after)
+                        if k.startswith(("federation.", "fed.", "gossip."))
+                        and after[k] != before.get(k, 0)}
+            row = dict(rep, seconds=time.monotonic() - t0, launches=minhash.launches - n0,
+                       counters=counters, jobs={k: [0, sizes[name], *table[(k, 0, sizes[name])]]
+                                                for k in keys[name]})
+            drills[name] = row
+            log(f"  drill {name}: ok {rep['ok']} in {row['seconds']:.3f} s; launches "
+                f"{row['launches']}; miners {rep['miners']}; evidence "
+                f"{ {k: v for k, v in rep.items() if k not in ('miners', 'errors', 'name')} }; "
+                f"counters {counters} [{self.card}]")
+            if rep["errors"] or not rep["ok"]:
+                raise AssertionError(f"drill {name}: {row}")
+            if row["launches"] <= 0:
+                raise AssertionError(f"drill {name}: the kernel was never launched")
+            if {m["tier"] for m in rep["miners"].values()} != {"cuda"}:
+                raise AssertionError(f"drill {name}: a miner off the cuda rung: {rep['miners']}")
+            if name == "drain-handoff" and not (
+                    rep["resumed_nonces_swept"] < rep["scratch_nonces_swept"]):
+                raise AssertionError(f"drill {name}: resumed {rep['resumed_nonces_swept']} "
+                                     f"not below {rep['scratch_nonces_swept']}")
+        return drills
+
+    def fed_processes(self, fleet, search, oracles) -> dict:
+        """Leg (b) of the federation path on a started :class:`FedFleet`:
+        (1) a key homed on r2 sent to r1 (forwarded); (2) twin Requests for
+        an r1-homed key at both ports (one sweep: the miners' launches
+        equal those of the submitted job's chunks swept here); (3) a range
+        r1 solved, asked of r2 after eight gossip intervals (answered from
+        the gossiped spans: no forward, no launch); (4) r2 SIGKILLed, then
+        an r2-homed key at r1 (answered by r1's own miner).  Per leg: each
+        Result, its seconds to Result, each miner's launches.  ``oracles``
+        collects every ``(data, 0, hi) -> Result`` to hold later.  Leaves
+        r1 live for the SIGTERM leg."""
+        from bitcoin_miner_tpu_torch.federation import Ring
+
+        ring = Ring(list(FED_CELLS))
+
+        def key(home, prefix):
+            return next(f"{prefix}{i}" for i in range(4096)
+                        if ring.home(f"{prefix}{i}") == home)
+
+        pid = {cell: fleet.miners[cell].pid for cell in FED_CELLS}
+        legs = {}
+
+        def leg(name, jobs):
+            before = fleet.settled()
+            got = fleet.jobs(jobs)
+            after = fleet.settled()
+            per = {cell: after.get(pid[cell], 0) - before.get(pid[cell], 0)
+                   for cell in FED_CELLS}
+            for (cell, data, hi), g in zip(jobs, got):
+                oracles.setdefault((data, 0, hi), []).append((cell, g[:2]))
+            legs[name] = dict(jobs=[list(j) for j in jobs], results=[list(g[:2]) for g in got],
+                              seconds=[g[2] for g in got], launches=per)
+            log(f"  federation ({name}) {jobs} -> {[g[:2] for g in got]}; time to Result "
+                f"{', '.join(f'{g[2]:.3f}' for g in got)} s at the client; launches per "
+                f"miner {per} [{self.card}]")
+            return got, per
+
+        def events(cell, span, event, data):
+            return [r for r in fleet.trace(cell) if (r["span"], r["event"]) == (span, event)
+                    and (r.get("attrs") or {}).get("data") == data]
+
+        # (1) forwarded: r1 relays to r2, whose miner sweeps.
+        k_fwd = key("r2", "fed-forward-")
+        _got, per_fwd = leg("forward", [("r1", k_fwd, FED_JOB_HI)])
+        # (2) twins at both ports: r2 forwards, r1 sweeps once.
+        k_twin = key("r1", "fed-twin-")
+        got_twin, per_twin = leg("twins", [("r1", k_twin, FED_JOB_HI),
+                                           ("r2", k_twin, FED_JOB_HI)])
+        if got_twin[0][:2] != got_twin[1][:2]:
+            raise AssertionError(f"federation (twins): different Results {got_twin}")
+        # (3) gossip: r1 solves, r2 answers from the gossiped spans.
+        k_gossip = key("r1", "fed-gossip-")
+        leg("solve", [("r1", k_gossip, FED_JOB_HI)])
+        time.sleep(8 * FED_GOSSIP_S)
+        _got, per_gossip = leg("gossip", [("r2", k_gossip, FED_JOB_HI)])
+        time.sleep(1.2)  # each replica's ticker flushes its trace every second
+        fwd = {k: events("r2", "fed", "forward", k) for k in (k_twin, k_gossip)}
+        if not fwd[k_twin] or fwd[k_gossip] or any(per_gossip.values()):
+            raise AssertionError(f"federation: r2 forwarded {fwd}; gossip leg's launches "
+                                 f"{per_gossip}")
+        # (4) SIGKILL r2; its key at r1 is swept by r1's miner.
+        legs["counters_r2_before_kill"] = fleet.counters("r2")
+        fleet.cells["r2"].kill()
+        fleet.cells["r2"].wait()
+        time.sleep(10 * FED_GOSSIP_S)  # past suspicion and confirmation
+        k_dead = key("r2", "fed-failover-")
+        _got, per_dead = leg("failover", [("r1", k_dead, FED_JOB_HI)])
+        time.sleep(1.2)
+        rows = fleet.trace("r1")
+        fwd = events("r1", "fed", "forward", k_fwd)
+        if len(fwd) != 1 or per_fwd["r1"] != 0 or per_fwd["r2"] <= 0:
+            raise AssertionError(f"federation (forward): r1 traced {fwd}, launches {per_fwd}")
+        tids = [r["trace"] for r in rows if (r["span"], r["event"]) == ("gw", "request")
+                and (r.get("attrs") or {}).get("data") == k_twin]
+        ev = {t: [r["event"] for r in rows if r["trace"] == t and r["span"] == "gw"]
+              for t in tids}
+        primary = [t for t in tids if "submit" in ev[t]]
+        if len(tids) != 2 or len(primary) != 1:
+            raise AssertionError(f"federation (twins): r1's gw events {ev}")
+        chunks = [(r["attrs"]["lo"], r["attrs"]["hi"]) for r in rows
+                  if r["trace"] == primary[0] and (r["span"], r["event"]) == ("sched", "dispatch")]
+        one, best = self.replay(search, k_twin, chunks)
+        legs["twins"].update(gw_events=list(ev.values()), chunks=len(chunks),
+                             one_sweep_launches=one)
+        log(f"  federation (twins): r1's gw events {list(ev.values())}; {len(chunks)} chunks; "
+            f"the miners launched {sum(per_twin.values())}, one sweep of those chunks here "
+            f"{one}")
+        if sum(per_twin.values()) != one or per_twin["r2"] != 0 or best != got_twin[0][:2]:
+            raise AssertionError(f"federation (twins): launches {per_twin} != one sweep's "
+                                 f"{one}, or its fold {best} != {got_twin[0][:2]}")
+        asked = events("r1", "gw", "request", k_gossip)
+        fall = events("r1", "fed", "local_fallback", k_dead)
+        if len(asked) != 1 or not fall or per_dead["r1"] <= 0:
+            raise AssertionError(f"federation: r1 saw {len(asked)} requests for the gossiped "
+                                 f"range; failover traced {fall}, launches {per_dead}")
+        return legs
+
+    def phase_federation(self) -> None:
+        """The federation tier and the model entry on the card.  (a) The
+        port's four drills in this process (:meth:`fed_drills`).  (b) Two
+        ``apps.federation`` replica processes with one ``apps.miner`` each
+        (started before the drills, so their start-up overlaps them) and
+        ``apps.client`` jobs (:meth:`fed_processes`); then r1 SIGTERMed:
+        it prints ``Replica r1 draining`` and exits 0.  Every Result is held
+        to ``sweep_min_hash`` on the card (swept while r1 drains) and
+        hashlib.  (c) ``forward_step_example(device="cuda")`` against its
+        plain version, and at the main path's shape ("cmu440", d 10, k 6,
+        batch 1024) against ``sweep_min_hash`` over the same 1.024e9
+        nonces.  Prints each leg's time to Result, counters and launches
+        per miner beside the card."""
+        import shutil
+        import tempfile
+
+        from bitcoin_miner_tpu_torch.apps import miner
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.models import forward_step_example
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash, minhash_plain
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+
+        deadline = time.monotonic() + FED_PHASE_S
+        work = tempfile.mkdtemp(prefix="federation-")
+        keep = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build", "federation")
+        fleet = FedFleet(work, deadline)
+        try:
+            fleet.start()
+            drills = self.fed_drills()
+            fleet.joined()
+            search = miner.make_async_search("cuda")
+            oracles = {}
+            legs = self.fed_processes(fleet, search, oracles)
+            # r2 back with a fresh incarnation, so r1's drain has a live
+            # successor (a drain whose every peer is dead waits out LSP
+            # epochs on each dead conn): once its gossip conn to r1 is up
+            # and a few beats went by, SIGTERM r1, and sweep the oracles
+            # and drive the model here while it drains.
+            fleet.start_cell("r2", "r2-restarted")
+            while not any((r["span"], r["event"]) == ("lsp", "connect")
+                          and (r.get("attrs") or {}).get("label") == "gossip-r2"
+                          for r in fleet.trace("r2-restarted")):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the restarted r2 never reached r1")
+                time.sleep(0.1)
+            time.sleep(4 * FED_GOSSIP_S)
+            r1 = fleet.cells["r1"]
+            legs["counters_r1_before_drain"] = fleet.counters("r1")
+            t_term, exited = time.monotonic(), []
+            r1.terminate()
+            waiter = threading.Thread(target=lambda: exited.append(
+                (r1.wait(), time.monotonic())), daemon=True)
+            waiter.start()
+            held = []
+            for (data, lo, hi), got in oracles.items():
+                r = sweep_min_hash(data, lo, hi, device=self.dev)
+                for cell, g in got:
+                    held.append([cell, data, hi, list(g)])
+                    if tuple(g) != (r.hash, r.nonce) or hash_nonce(data, g[1]) != g[0]:
+                        raise AssertionError(f"federation: {cell} answered {data!r} [0, {hi}] "
+                                             f"with {g}; sweep_min_hash {r}")
+            model = self.fed_model(forward_step_example, minhash, minhash_plain,
+                                   sweep_min_hash, hash_nonce)
+            waiter.join(timeout=max(1.0, min(t_term + FED_DRAIN_S, deadline)
+                                    - time.monotonic()))
+            if not exited:
+                raise AssertionError(f"r1 did not exit within {FED_DRAIN_S} s of SIGTERM")
+            drain_s = exited[0][1] - t_term
+            out = fleet.read("r1.out")
+            log(f"  federation (SIGTERM r1): exit {r1.returncode} after {drain_s:.3f} s; "
+                f"stdout {out.splitlines()} [{self.card}]")
+            if r1.returncode != 0 or "Replica r1 draining" not in out.splitlines():
+                raise AssertionError(f"r1 exited {r1.returncode}: {out!r}")
+            handoff = fleet.wait_for("r2", r"handoff from r1: (\d+) resumable", 1, 5)
+            log(f"  federation (SIGTERM r1): the restarted r2 logged the handoff "
+                f"({handoff} resumable identities)")
+            for p in fleet.miners.values():
+                if p.poll() is None:
+                    p.terminate()
+            for p in fleet.miners.values():
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            reports = fleet.reports()
+            miners = {cell: reports.get(p.pid) for cell, p in fleet.miners.items()}
+            if any(r is None for r in miners.values()):
+                raise AssertionError(f"federation: a miner left no report: {miners}")
+            launches = {cell: r["launches"] for cell, r in miners.items()}
+            counters = {"r1": legs.pop("counters_r1_before_drain"),
+                        "r2": legs.pop("counters_r2_before_kill")}
+            log(f"  federation processes: launches per miner {launches}, exits "
+                f"{ {c: r['exit'] for c, r in miners.items()} }; counters at each cell's last "
+                f"health line {counters}; {len(held)} Results held to sweep_min_hash and "
+                f"hashlib [{self.card}]")
+            in_drills = sum(d["launches"] for d in drills.values())
+            self.k_stats["launches_federation"] = in_drills + sum(launches.values())
+            self.fed = dict(drills=drills, processes=dict(
+                legs=legs, launches=launches, counters=counters, drain_s=drain_s,
+                handoff_identities=int(handoff),
+                held=held), model_entry=model, launches_drills=in_drills, card=self.card)
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the federation phase ran past {FED_PHASE_S} s")
+        finally:
+            fleet.kill_all()
+            shutil.rmtree(keep, ignore_errors=True)
+            shutil.copytree(work, keep, dirs_exist_ok=True)
+            shutil.rmtree(work, ignore_errors=True)
+
+    def fed_model(self, forward_step_example, minhash, minhash_plain, sweep_min_hash,
+                  hash_nonce) -> dict:
+        """Leg (c): the model entry on the card against its plain version
+        at the default shape, and at the main path's shape against
+        ``sweep_min_hash`` over the same nonces."""
+        fn, args = forward_step_example(device="cuda")
+        if fn is not minhash:
+            raise AssertionError(f"forward_step_example(device='cuda') gave {fn}")
+        n0 = minhash.launches
+        got = fn(*args).tolist()
+        want = minhash_plain(*args).tolist()
+        launches = minhash.launches - n0
+        if got != want or launches != 1:
+            raise AssertionError(f"model entry: kernel {got}, plain {want}, launches {launches}")
+        d, k, batch = 10, MAIN_K, MAIN_B
+        fn, args = forward_step_example(b"cmu440", d=d, k=k, batch=batch, device="cuda")
+        ms, tri = self.time_kernel(lambda: fn(*args), reps=3, warm=1)
+        lo = 10 ** (d - 1)
+        hi = lo + batch * 10**k - 1
+        r = sweep_min_hash("cmu440", lo, hi, device=self.dev)
+        mine = ((tri[0] << 32) | tri[1], lo + tri[2])
+        log(f"  model entry: default shape {got} == plain; ('cmu440', d {d}, k {k}, batch "
+            f"{batch}) -> {tri} = {mine}, {ms:.3f} ms per call; sweep_min_hash over "
+            f"[{lo}, {hi}] {(r.hash, r.nonce)} [{self.card}]")
+        if mine != (r.hash, r.nonce) or hash_nonce("cmu440", mine[1]) != mine[0]:
+            raise AssertionError(f"model entry at the main shape: {mine} != {r}")
+        return dict(default=got, main_shape=[d, k, batch], main_triple=tri, main_ms=ms,
+                    sweep_min_hash=[r.hash, r.nonce])
+
     def phase_hot_path(self) -> None:
         """The hot plane: (a) the merge kernel against its plain version;
         (b) hot sweeps against per-chunk ones and the oracle; (c) the hot
@@ -3276,6 +3770,7 @@ class Smoke:
             ("gateway path", self.phase_gateway),
             ("autoscale path", self.phase_autoscale),
             ("chaos path", self.phase_chaos),
+            ("federation path", self.phase_federation),
             ("hot path", self.phase_hot_path),
             ("numbers", self.phase_numbers),
         ]
@@ -3326,7 +3821,7 @@ class Smoke:
                 "lane_ops_two_blocks", "ms_56_chars", "ms_full_fold_56_chars",
                 "plain_ms_56_chars", "bound_ms_56_chars", "lane_ops_56_chars",
                 "launches_serving", "launches_gateway", "launches_autoscale",
-                "launches_chaos", "sm_clock_mhz", "sass", "ptxas")},
+                "launches_chaos", "launches_federation", "sm_clock_mhz", "sass", "ptxas")},
         }, {
             "name": "sha256_minhash_factored",
             "route": "cuda",
@@ -3364,7 +3859,7 @@ class Smoke:
             "mesh_path": self.mesh, "multihost_ranks": self.multihost,
             "serving_path": self.serving, "telemetry_path": self.tele,
             "gateway_path": self.gate, "autoscale_path": self.autoscale,
-            "chaos_path": self.chaos, "hot_path": self.hot}
+            "chaos_path": self.chaos, "federation_path": self.fed, "hot_path": self.hot}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch

@@ -6,7 +6,9 @@ each workload held to the workload's oracle, across 10^19 and up to the
 u64 edge too; and the sharded sweep (one and two shards on one card, and
 the mesh pipeline) held to the single-device sweep.  The hot plane's merge
 kernel is held to its plain version step by step, and the hot sweeps of
-the three kernels' paths to the per-chunk ones and the oracle.
+the three kernels' paths to the per-chunk ones and the oracle.  The model
+entry is held to its plain version, and two in-process federation
+replicas with cuda miners answer a forwarded job exactly.
 
 Marked ``gpu``: without a CUDA card each test skips with a reason.  This
 file imports only the port (no JAX), so it also runs on a machine without
@@ -423,3 +425,51 @@ def test_hot_sharded_across_two_cards(cuda_device):
         got = sweep_min_hash_sharded("cards", lo, hi, devices=devs, max_k=3,
                                      batch_per_device=4, sieve=sieve, hot=True)
         assert (got.hash, got.nonce) == min_hash_range("cards", lo, hi)
+
+
+@pytest.mark.gpu
+def test_model_entry_and_a_forwarded_federation_job_on_card(cuda_device):
+    """``forward_step_example`` on the card launches the kernel and equals
+    its plain version; two in-process replicas, a cuda miner on each,
+    answer a job forwarded from the non-home cell exactly."""
+    import threading
+
+    from bitcoin_miner_tpu_torch import lsp
+    from bitcoin_miner_tpu_torch.apps import client, miner
+    from bitcoin_miner_tpu_torch.federation import Replica, Ring
+    from bitcoin_miner_tpu_torch.models import forward_step_example
+
+    fn, args = forward_step_example()
+    assert fn is minhash and args[0].device.type == "cuda"
+    n0 = minhash.launches
+    assert fn(*args).tolist() == minhash_plain(*args).tolist()
+    assert minhash.launches == n0 + 1
+
+    params = lsp.Params(5, 200, 5)
+    ports = {}
+    for name in ("p", "q"):
+        sock = lsp.Server(0, params)  # a free UDP port for each federation port
+        ports[name] = sock.port
+        sock.close()
+    cells = {name: Replica(name, {o: ("127.0.0.1", ports[o]) for o in ports if o != name},
+                           fed_port=ports[name], params=params, gossip_interval=0.15,
+                           tick_interval=0.05).start() for name in ports}
+    try:
+        for cell in cells.values():
+            conn = lsp.Client("127.0.0.1", cell.port, params)
+            threading.Thread(target=miner.run_miner, args=(conn, miner.make_search("cuda")),
+                             daemon=True).start()
+        ring = Ring(list(cells))
+        key = next(f"gpu-fwd-{i}" for i in range(4096) if ring.home(f"gpu-fwd-{i}") == "q")
+        n0 = minhash.launches
+        conn = lsp.Client("127.0.0.1", cells["p"].port, params)
+        try:
+            got = client.request_once(conn, key, 2 * 10**8, timeout=60)
+        finally:
+            conn.close()
+        r = sweep.sweep_min_hash(key, 0, 2 * 10**8, device=cuda_device)
+        assert got == (r.hash, r.nonce)
+        assert minhash.launches > n0
+    finally:
+        for cell in cells.values():
+            cell.close()

@@ -53,8 +53,8 @@ PKGS = {"port": (metrics, fleetview, slo, telemetry, trace),
 
 _REGISTRY_LINE = re.compile(r"^#:\s{2,}([a-z][a-z0-9_]*(?:\.[a-z0-9_]+)+)\s+\S")
 _METRIC_OK = re.compile(r"metric-ok:\s*([A-Za-z0-9_.*,\s]+)")
-_GAUGES = ("gauge.", "fleet.", "fed.conns_live", "gw.conns_live", "kernel.thresh_staleness",
-           "autoscale.target_workers")
+_GAUGES = ("gauge.", "fleet.", "fed.conns_live", "fed.peer_state", "gw.conns_live",
+           "kernel.thresh_staleness", "autoscale.target_workers")
 _KIND = {"inc": "counter", "observe": "hist", "set_gauge": "gauge"}
 
 
