@@ -144,7 +144,20 @@ Phases (any failure ends the run non-zero, with no result line):
    the main path's shape, against ``sweep_min_hash``; each leg's time to
    Result, the cells' ``federation.*`` / ``fed.*`` / ``gossip.*`` counters
    and launches per miner;
-18. hot path — the hot plane's merge kernel against its plain version,
+18. tools path — the port's operator tools (``bitcoin_miner_tpu_torch.tools``)
+   on the card: ``loadgen`` in this process in its default mode (8 clients,
+   32 jobs, half repeats, each distinct job [0, 1e9..2e9] on two cuda
+   miners, ``--oracle card``: gateway hits = jobs - distinct + 1, the
+   repeat probe 0 chunks, fewer launches than the baseline leg),
+   ``--overlap`` (its sub-range probe 0 chunks) and ``--open-loop 2
+   --duration 5`` (p50, p95); ``chaos_replay`` burst-loss on [0,
+   19,999,999,999] with three cuda miners and the death-detect federation
+   drill to 9,999,999,999, both ``--oracle card``; the autoscale
+   supervisor as a process against an ``apps.server --fleet-log`` process,
+   fed burn rows that this script appends to the log: it spawns one cuda
+   worker, which alone serves a 1e10 job (held to ``sweep_min_hash`` and
+   hashlib) and drains with exit 0 when the supervisor is SIGTERMed;
+19. hot path — the hot plane's merge kernel against its plain version,
    bit-exact, over seeded sequences and random carries with one and two
    shard outputs (ties, sentinels, a vacant carry against h0 == U32_MAX);
    ``sweep_min_hash(hot=True)`` against the per-chunk sweep on 1e9-nonce
@@ -158,7 +171,7 @@ Phases (any failure ends the run non-zero, with no result line):
    (per-chunk, hot) in nonces/s; the merge's device time per launch (a
    CUDA Graph of launches) beside an empty kernel's timed the same way,
    the host's issue time per launch and its plain version's;
-19. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
+20. numbers — ms per full dispatch of the min-hash kernel ("cmu440", the
    50- and the 56-character message) and of both kernels on the same
    dispatches (CUDA events, in turns, each timed output held to the plain
    version),
@@ -436,6 +449,28 @@ FED_JOB_HI = 9_999_999_999
 FED_DRAIN_S = 30  # SIGTERM to exit, its successor live
 FED_PHASE_S = 75
 HEALTH_EXTRA = re.compile(r" extra (\{.*?\})")
+# The tools phase: the port's three operator tools on the card.  loadgen
+# in this process: its default mode (8 clients, 32 jobs of which half
+# repeat an earlier signature, each distinct job [0, 1e9..2e9] swept by
+# two cuda miners, the card as the oracle), --overlap at the same size,
+# and --open-loop at 2 Requests/s for 5 s; chaos_replay in this process:
+# burst-loss at CHAOS_DRILLS' seed on [0, 19,999,999,999] with three
+# miners, and the death-detect federation drill to 9,999,999,999; the
+# autoscale supervisor as a process against a port server started with
+# --fleet-log, fed burn rows that this script appends to that log (the
+# server arms no SLO, so its own rows carry no alert): one cuda worker
+# spawned, TOOLS_AS_JOB served by it alone, the worker drained when the
+# supervisor is stopped.  Then the phase's time limit.
+TOOLS_LOADGEN = ["--clients", "8", "--jobs", "32", "--dup", "0.5", "--max-nonce",
+                 "1999999999", "--miners", "2", "--oracle", "card", "--timeout", "60"]
+TOOLS_OPEN_LOOP = ["--open-loop", "2", "--duration", "5", "--ol-timeout", "30"]
+TOOLS_CHAOS = ["--scenario", "burst-loss", "--seed", str(CHAOS_DRILLS[0][1]), "--data",
+               "tools-chaos", "--max-nonce", str(CHAOS_MAX_NONCE), "--miners",
+               str(CHAOS_MINERS), "--oracle", "card", "--timeout", str(CHAOS_DRILL_S)]
+TOOLS_FED = ["--fed-drill", "death-detect", "--max-nonce", str(FED_DRILL_HI), "--oracle", "card"]
+TOOLS_AS_SPEC = "min=0,max=1,hold=1,up_cooldown=0,down_cooldown=600,interval=0.25"
+TOOLS_AS_JOB = ("tools-autoscale", 9_999_999_999)
+TOOLS_PHASE_S = 90
 
 
 def log(*a) -> None:
@@ -1106,6 +1141,7 @@ class Smoke:
         self.autoscale = {}  # the autoscale path's workers, timeline and launches
         self.chaos = {}  # the chaos path's drills and served job
         self.fed = {}  # the federation path's drills, process legs and model entry
+        self.tools = {}  # the tools path's runs, launches and the supervisor's leg
 
     # ------------------------------------------------------------ helpers
 
@@ -3319,6 +3355,249 @@ class Smoke:
         return dict(default=got, main_shape=[d, k, batch], main_triple=tri, main_ms=ms,
                     sweep_min_hash=[r.hash, r.nonce])
 
+    def run_tool(self, main, argv) -> dict:
+        """One port tool's ``main(argv)`` in this process: its return code
+        must be 0; returns its JSON line (the last line of its stdout)."""
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        if rc != 0 or not lines:
+            raise AssertionError(f"tool {argv}: exit {rc}, stdout {buf.getvalue()[-2000:]!r}")
+        return json.loads(lines[-1])
+
+    def tools_loadgen(self) -> dict:
+        """The tools path's loadgen runs (in this process, miners on the
+        cuda rung, the card as the oracle): the default mode, --overlap
+        and --open-loop, each held to the tool's own invariants."""
+        from bitcoin_miner_tpu_torch.tools import loadgen
+
+        out = {}
+        for name, extra in (("default", []), ("overlap", ["--overlap"]),
+                            ("open_loop", TOOLS_OPEN_LOOP)):
+            t0 = time.monotonic()
+            row = out[name] = self.run_tool(loadgen.main, [*TOOLS_LOADGEN, *extra])
+            row["seconds"] = time.monotonic() - t0
+            if (row["tier"], row["oracle"], row["device"]) != (
+                    "cuda", "card", self.torch.cuda.get_device_name(0)):
+                raise AssertionError(f"loadgen {name}: ran on {row['tier']}, {row['device']}, "
+                                     f"oracle {row['oracle']}")
+            if row["repeat_zero_chunks"] is not True:
+                raise AssertionError(f"loadgen {name}: the repeat probe assigned chunks")
+            getattr(self, f"tools_loadgen_{name}")(row)
+        return out
+
+    def tools_loadgen_default(self, d: dict) -> None:
+        gw = d["gateway_counters"]
+        hits = gw.get("gateway.coalesced", 0) + gw.get("gateway.cache_hits", 0)
+        launches = (d["launches"]["minhash"], d["baseline_launches"]["minhash"])
+        log(f"  loadgen (default): {d['jobs']} jobs, {d['distinct_signatures']} distinct, "
+            f"{d['value']} jobs/s gateway against {d['baseline_jobs_per_sec']} baseline; hits "
+            f"{hits} (coalesced {gw.get('gateway.coalesced', 0)}, cache "
+            f"{gw.get('gateway.cache_hits', 0)}); swept {d['swept_nonces']} against "
+            f"{d['baseline_swept_nonces']}; row 2 launches gateway {launches[0]}, baseline "
+            f"{launches[1]}, oracle {d['oracle_launches']['minhash']}; latency "
+            f"{d['latency_s']}; {d['seconds']:.1f} s [{self.card}]")
+        if hits != d["jobs"] - d["distinct_signatures"] + 1:
+            raise AssertionError(f"loadgen: {hits} gateway hits for {d['jobs']} jobs, "
+                                 f"{d['distinct_signatures']} distinct")
+        if not 0 < launches[0] < launches[1]:
+            raise AssertionError(f"loadgen: launches gateway {launches[0]}, baseline "
+                                 f"{launches[1]}")
+
+    def tools_loadgen_overlap(self, o: dict) -> None:
+        log(f"  loadgen (--overlap): {o['jobs']} jobs, {o['distinct_signatures']} distinct; "
+            f"swept {o['swept_nonces']} against the exact cache's {o['exact_swept_nonces']} "
+            f"(reduction {o['swept_reduction']}); row 2 launches {o['launches']['minhash']} "
+            f"against {o['exact_launches']['minhash']}, oracle "
+            f"{o['oracle_launches']['minhash']}; sub-range probe 0 chunks "
+            f"{o['subrange_zero_chunks']}; {o['seconds']:.1f} s [{self.card}]")
+        if o["subrange_zero_chunks"] is not True or o["launches"]["minhash"] <= 0:
+            raise AssertionError(f"loadgen --overlap: {o}")
+
+    def tools_loadgen_open_loop(self, ol: dict) -> None:
+        st = ol["open_loop"]
+        log(f"  loadgen (--open-loop 2, 5 s): offered {st['offered']}, completed "
+            f"{st['completed']}, failed {st['failed']}, shed {st['shed']}; p50 "
+            f"{st['latency_s']['p50']} s, p95 {st['latency_s']['p95']} s; row 2 launches "
+            f"{ol['launches']['minhash']}, oracle {ol['oracle_launches']['minhash']}; "
+            f"{ol['seconds']:.1f} s [{self.card}]")
+        if st["completed"] <= 0 or st["wrong"] or ol["subrange_zero_chunks"] is not True:
+            raise AssertionError(f"loadgen --open-loop: {ol}")
+
+    def tools_chaos(self) -> dict:
+        """The tools path's chaos_replay runs (in this process, miners on
+        the cuda rung, the card as the oracle)."""
+        from bitcoin_miner_tpu_torch.tools import chaos_replay
+
+        out = {}
+        for name, argv in (("burst-loss", TOOLS_CHAOS), ("death-detect", TOOLS_FED)):
+            t0 = time.monotonic()
+            row = self.run_tool(chaos_replay.main, argv)
+            row["seconds"] = time.monotonic() - t0
+            out[name] = row
+            log(f"  chaos_replay {name}: ok {row['ok']}, {row.get('got') or row.get('bit_exact')}"
+                f"; row 2 launches {row['launches']['minhash']}, oracle "
+                f"{row['oracle_launches']['minhash']}; miners {row['miners']}; "
+                f"{row['seconds']:.1f} s [{self.card}]")
+            if not row["ok"] or row["tier"] != "cuda" or row["launches"]["minhash"] <= 0:
+                raise AssertionError(f"chaos_replay {name}: {row}")
+            if {m["tier"] for m in row["miners"].values()} != {"cuda"}:
+                raise AssertionError(f"chaos_replay {name}: a miner off the cuda rung")
+        if out["burst-loss"]["counters"].get("chaos.dropped", 0) <= 0:
+            raise AssertionError(f"chaos_replay burst-loss dropped nothing: "
+                                 f"{out['burst-loss']['counters']}")
+        return out
+
+    def phase_tools(self) -> None:
+        """The port's operator tools on the card.  The autoscale supervisor
+        (``python -m bitcoin_miner_tpu_torch.tools.autoscale``) starts
+        first, against a port server process with ``--fleet-log``, so its
+        worker's start-up overlaps the rest: this script appends burn rows
+        to that log until the supervisor spawns its one worker (the plain
+        port miner, ``--backend auto``, observed by WORKER_HOOK).  Then, in
+        this process, ``loadgen`` (default mode, ``--overlap``,
+        ``--open-loop``) and ``chaos_replay`` (burst-loss, the death-detect
+        federation drill), every miner on the cuda rung and every Result
+        held by the tool to ``sweep_min_hash`` on the card and to
+        ``hash_nonce``.  Then TOOLS_AS_JOB through an ``apps.client`` to
+        the worker alone, held to ``sweep_min_hash`` and hashlib; the
+        supervisor is SIGTERMed and must exit 0, its worker drained with
+        exit 0 and launches.  The kernels' counts are set to 0 at the start
+        and read at the end; the oracles' launches are counted apart."""
+        import shutil
+        import signal
+        import tempfile
+
+        from bitcoin_miner_tpu_torch.bitcoin.hash import hash_nonce
+        from bitcoin_miner_tpu_torch.ops.sweep import sweep_min_hash
+        from bitcoin_miner_tpu_torch.ops.blake2b_minhash import blake2b_minhash
+        from bitcoin_miner_tpu_torch.ops.hot import hot_merge
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash import minhash
+        from bitcoin_miner_tpu_torch.ops.sha256_minhash_factored import minhash_factored
+        from bitcoin_miner_tpu_torch.tools import kernel_launches
+
+        deadline = time.monotonic() + TOOLS_PHASE_S
+        work = tempfile.mkdtemp(prefix="tools-")
+        keep = os.path.join(ROOT, "bitcoin_miner_tpu_torch", "build", "tools")
+        fleet = supervisor = None
+        spawned, stop_rows = threading.Event(), threading.Event()
+        t_phase = time.monotonic()
+        try:
+            for wrapper in (minhash, minhash_factored, blake2b_minhash, hot_merge):
+                wrapper.launches = 0  # counts from here on are this path's
+            fleet = GateFleet(work, "tools-autoscale", deadline, ["--fleet-log=fleet.jsonl"])
+            supervisor = fleet._spawn("supervisor", [
+                "-m", "bitcoin_miner_tpu_torch.tools.autoscale", f"127.0.0.1:{fleet.port}",
+                "--fleet-log", "fleet.jsonl", "--spec", TOOLS_AS_SPEC])
+            rows = []
+
+            def burn():
+                """Burn rows into the server's fleet log until the spawn."""
+                path = os.path.join(fleet.dir, "fleet.jsonl")
+                while not stop_rows.is_set() and time.monotonic() < deadline:
+                    with open(path, "a") as f:
+                        f.write(json.dumps({"source": "chip_smoke", "slo": {
+                            "alerts": ["tools-path-burn"]}, "gauges": {
+                            "fleet.utilization": 1.0}}) + "\n")
+                    rows.append(time.monotonic() - t_phase)
+                    if '"last_action": "spawn 1"' in fleet.read("supervisor.out"):
+                        spawned.set()
+                        return
+                    time.sleep(0.2)
+
+            burner = threading.Thread(target=burn, name="tools-burn", daemon=True)
+            burner.start()
+            lg = self.tools_loadgen()
+            ch = self.tools_chaos()
+            in_process = kernel_launches()
+            oracle = {k: sum(r["oracle_launches"][k] for r in (*lg.values(), *ch.values()))
+                      for k in in_process}
+            # The supervisor's leg: its worker alone serves the job.
+            if not spawned.wait(timeout=max(0.0, deadline - time.monotonic())):
+                raise AssertionError(f"the supervisor never spawned: "
+                                     f"{fleet.read('supervisor.out')[-2000:]!r}")
+            fleet.wait_for(r"miner (\d+) joined", 1, max(1.0, deadline - time.monotonic()))
+            t_joined = time.monotonic() - t_phase
+            data, hi = TOOLS_AS_JOB
+            r = sweep_min_hash(data, 0, hi, device=self.dev)  # its launches are not the path's
+            before = fleet.settled()
+            got = fleet.finish_clients(fleet.spawn_clients([(fleet.port, data, hi)]), [TOOLS_AS_JOB])
+            after = fleet.settled()
+            h, n, job_s = got[0]
+            if (h, n) != (r.hash, r.nonce) or hash_nonce(data, n) != h:
+                raise AssertionError(f"supervisor leg: served ({h}, {n}), sweep_min_hash {r}")
+            supervisor.send_signal(signal.SIGTERM)
+            try:
+                supervisor.wait(timeout=max(1.0, min(20.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                raise AssertionError("the supervisor did not exit within 20 s of SIGTERM")
+            decisions = [json.loads(ln) for ln in fleet.read("supervisor.out").splitlines()
+                         if ln.startswith("{")]
+            reports = fleet.reports()
+            log(f"  supervisor: {len(rows)} burn rows appended by this script to the server's "
+                f"fleet log (the server arms no SLO), {rows[0]:.2f} to {rows[-1]:.2f} s into "
+                f"the phase; decisions "
+                f"{[(d['state'], d['live'], d['last_action']) for d in decisions]}; exit "
+                f"{supervisor.returncode}; worker joined at {t_joined:.1f} s; "
+                f"{TOOLS_AS_JOB} -> ({h}, {n}) in {job_s:.3f} s at the client, equal to "
+                f"sweep_min_hash and hashlib; worker reports "
+                f"{ {p: (rep['argv'][1:], rep['launches'], rep['exit'], rep['miner_events'][-1:], len(rep['miner_events'])) for p, rep in reports.items()} } "
+                f"(argv, launches, exit, last miner event, events) [{self.card}]")
+            if supervisor.returncode != 0:
+                raise AssertionError(f"the supervisor exited {supervisor.returncode}: "
+                                     f"{fleet.read('supervisor.out')[-2000:]!r}")
+            if [d["last_action"] for d in decisions if d["acted"]][:1] != ["spawn 1"]:
+                raise AssertionError(f"supervisor: decisions {decisions}")
+            if len(reports) != 1:
+                raise AssertionError(f"supervisor: {len(reports)} worker reports: {reports}")
+            (pid, rep), = reports.items()
+            served = after.get(pid, 0) - before.get(pid, 0)
+            if rep["argv"][1:] != ["-m", "bitcoin_miner_tpu_torch.apps.miner",
+                                   f"127.0.0.1:{fleet.port}", "--backend", "auto"] \
+                    or rep["exit"] != 0 or "drained" not in rep["miner_events"] \
+                    or served <= 0 or rep["launches"] != after.get(pid):
+                raise AssertionError(f"supervisor's worker: {rep}, launches in the job {served}")
+            fleet.stop()
+            fleet.stopped.join(timeout=60)
+            miners = {k: in_process[k] - oracle[k] for k in in_process}
+            self.k_stats["launches_tools"] = miners["minhash"] + rep["launches"]
+            self.tools = dict(
+                loadgen=lg, chaos_replay=ch, in_process_miner_launches=miners,
+                oracle_launches=oracle, supervisor=dict(
+                    spec=TOOLS_AS_SPEC, burn_rows=[len(rows), rows[0], rows[-1]],
+                    decisions=decisions,
+                    exit=supervisor.returncode, worker=dict(
+                        pid=pid, argv=rep["argv"][1:], launches=rep["launches"],
+                        exit=rep["exit"], miner_events=len(rep["miner_events"]),
+                        last_miner_event=rep["miner_events"][-1], joined_at_s=t_joined),
+                    job=[data, hi, h, n, job_s], job_launches=served),
+                seconds=time.monotonic() - t_phase, card=self.card)
+            log(f"  tools path: row 2 launches by the tools' miners {self.k_stats['launches_tools']} "
+                f"(in this process {miners['minhash']}, the supervisor's worker "
+                f"{rep['launches']}); the oracles' {oracle['minhash']} apart [{self.card}]")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the tools phase ran past {TOOLS_PHASE_S} s")
+        finally:
+            stop_rows.set()
+            if supervisor is not None and supervisor.poll() is None:
+                supervisor.kill()
+                supervisor.wait()
+            if fleet is not None:
+                # A worker the supervisor left behind: observed, never reported.
+                for p in set(fleet.live_launches()) - set(fleet.reports()):
+                    try:
+                        os.kill(p, signal.SIGKILL)
+                    except OSError:
+                        pass
+                fleet.kill_all()
+            shutil.rmtree(keep, ignore_errors=True)
+            shutil.copytree(work, keep, dirs_exist_ok=True)
+            shutil.rmtree(work, ignore_errors=True)
+
     def phase_hot_path(self) -> None:
         """The hot plane: (a) the merge kernel against its plain version;
         (b) hot sweeps against per-chunk ones and the oracle; (c) the hot
@@ -3771,6 +4050,7 @@ class Smoke:
             ("autoscale path", self.phase_autoscale),
             ("chaos path", self.phase_chaos),
             ("federation path", self.phase_federation),
+            ("tools path", self.phase_tools),
             ("hot path", self.phase_hot_path),
             ("numbers", self.phase_numbers),
         ]
@@ -3821,7 +4101,8 @@ class Smoke:
                 "lane_ops_two_blocks", "ms_56_chars", "ms_full_fold_56_chars",
                 "plain_ms_56_chars", "bound_ms_56_chars", "lane_ops_56_chars",
                 "launches_serving", "launches_gateway", "launches_autoscale",
-                "launches_chaos", "launches_federation", "sm_clock_mhz", "sass", "ptxas")},
+                "launches_chaos", "launches_federation", "launches_tools", "sm_clock_mhz",
+                "sass", "ptxas")},
         }, {
             "name": "sha256_minhash_factored",
             "route": "cuda",
@@ -3859,7 +4140,8 @@ class Smoke:
             "mesh_path": self.mesh, "multihost_ranks": self.multihost,
             "serving_path": self.serving, "telemetry_path": self.tele,
             "gateway_path": self.gate, "autoscale_path": self.autoscale,
-            "chaos_path": self.chaos, "federation_path": self.fed, "hot_path": self.hot}
+            "chaos_path": self.chaos, "federation_path": self.fed, "tools_path": self.tools,
+            "hot_path": self.hot}
         print(json.dumps(line), flush=True)
         print(self.card, flush=True)
         torch = self.torch
